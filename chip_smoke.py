@@ -5,23 +5,35 @@ any failure.
 
 Phases, one JSON line each (no phase's error is caught):
 
-1. build   — compile every CUDA kernel from the sources in the checkout,
-             all ``nvcc`` processes started together.
-2. kernels — each kernel against its plain PyTorch version on the card at
-             the main path's shapes (cora layer 0, a ragged case, bf16),
-             with its time, the plain version's, one PyTorch library
-             call's where one computes the same function, and the bound.
-3. main    — ``repro_torch.compile`` on cora at the paper's Kipf widths
-             (1433 -> 16 -> 8): the searched schedule and forced
-             (sp_opt, AC), (seq, AC), (seq, CA) schedules, each on the
-             kernel tier and against its eager twin on the card.
-4. serving — 32 reddit-bin graphs: bucketize -> assemble -> compile per
-             bucket -> bind -> batched run with mean readout.  Each batch
-             is held against its eager twin, the fused kernel against its
-             plain version at the batch's shapes, and every per-graph
-             output against a solo run of that graph.
+1. build      — compile every CUDA kernel from the sources in the checkout,
+                all ``nvcc`` processes started together.
+2. kernels    — each kernel against its plain PyTorch version on the card
+                at the main paths' shapes, with its time, the plain
+                version's, one PyTorch library call's where one computes
+                the same function, and the bound: the GNN kernels at cora
+                layer 0; flash attention at the reference's test shapes,
+                smollm-135m prefill (f32, bf16), a ragged S and D = 128;
+                ``gemm`` under each dataflow at the reference's test shapes,
+                cora's layer-0 combination and smollm's ``w_gate``.
+3. main       — ``repro_torch.compile`` on cora at the paper's Kipf widths
+                (1433 -> 16 -> 8): the searched schedule and forced
+                (sp_opt, AC), (seq, AC), (seq, CA) schedules, each on the
+                kernel tier and against its eager twin on the card.
+4. serving    — 32 reddit-bin graphs: bucketize -> assemble -> compile per
+                bucket -> bind -> batched run with mean readout.  Each batch
+                is held against its eager twin, the fused kernel against its
+                plain version at the batch's shapes, and every per-graph
+                output against a solo run of that graph.
+5. gemm       — the dataflow GEMM's own entry point, the public op
+                ``gemm``, called once per dataflow on cora's layer-0
+                combination (no model path of the reference calls it).
+6. lm_serve   — ``repro_torch.launch.serve.generate`` on smollm-135m at full
+                width (batch 4, 1024-token prompts, 32 greedy tokens), with
+                the prefill logits held against the plain-version twin in
+                f32 and in bf16, then a depth-2 forward of the other dense
+                archs at full width against their twins.
 
-Launch counts are set to 0 just before phases 3 and 4 and read just after;
+Launch counts are set to 0 just before phases 3-6 and read just after;
 the ``{"kernels": [...]}`` line reports them.  The last line is
 ``{"ok": true, "device": {...}}``; it is printed only when every phase
 passed.  Weights and data are random, made from fixed seeds.
@@ -40,6 +52,15 @@ TOL_F32 = {"spmm": dict(rtol=1e-4, atol=1e-5),
            "fused_agg_cmb": dict(rtol=2e-4, atol=2e-4)}
 TOL_BF16 = dict(rtol=2e-2, atol=2e-2)
 TOL_PATH = dict(rtol=2e-4, atol=2e-4)
+TOL_FLASH = dict(rtol=2e-4, atol=2e-5)  # tests/test_kernels.py's f32 tolerance
+TOL_GEMM = dict(rtol=1e-4, atol=1e-4)
+# f32 prefill logits, kernel route against the plain versions: 30 layers of
+# f32 online softmax summed in another order (64-key blocks, not 512)
+TOL_LM_F32 = dict(rtol=1e-3, atol=1e-3)
+# bf16 prefill logits against the plain twin, as a relative L2 error: the
+# two attention outputs differ by at most about one bf16 rounding (2^-8) in
+# some elements, and that difference is carried through 30 bf16 layers
+LM_BF16_REL_L2 = 3e-2
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # dense, per s
 
@@ -213,6 +234,117 @@ def phase_kernels(dev, flush) -> dict:
     return numbers
 
 
+def flash_bound(b, hq, hkv, sq, sk, d, dtype, causal) -> tuple[float, str]:
+    """Bytes: q, k, v read once, out written once.  Operations: 2 D for
+    q.k and 2 D for p.v per (query, key) pair the mask lets through."""
+    pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
+    es = torch.tensor([], dtype=dtype).element_size()
+    n_bytes = (2 * b * hq * sq * d + 2 * b * hkv * sk * d) * es
+    return bound_ms(n_bytes, 4 * d * b * hq * pairs, dtype)
+
+
+def gemm_bound(v, f, g, dtype) -> tuple[float, str]:
+    es = torch.tensor([], dtype=dtype).element_size()
+    return bound_ms((v * f + f * g + v * g) * es, 2 * v * f * g, dtype)
+
+
+def phase_lm_kernels(dev, flush) -> dict:
+    """Flash attention and the dataflow GEMM against their plain versions;
+    returns their numbers for the final ``kernels`` line."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    from repro_torch.kernels.gemm_dataflow import DATAFLOWS, gemm, gemm_ref
+
+    def qkv(b, hq, hkv, sq, sk, d, seed, dtype=torch.float32):
+        return (randn((b, hq, sq, d), seed, dev).to(dtype),
+                randn((b, hkv, sk, d), seed + 1, dev).to(dtype),
+                randn((b, hkv, sk, d), seed + 2, dev).to(dtype))
+
+    flash_cases = [(f"test_kernels_{b}x{hq}x{hkv}x{sq}x{sk}x{d}_causal{int(c)}",
+                    (b, hq, hkv, sq, sk, d), torch.float32, c, TOL_FLASH)
+                   for b, hq, hkv, sq, sk, d in [(2, 4, 2, 96, 96, 32),
+                                                 (1, 8, 1, 64, 128, 16),
+                                                 (2, 2, 2, 33, 33, 64)]
+                   for c in (False, True)]
+    smollm = (4, 9, 3, 1024, 1024, 64)
+    flash_cases += [
+        ("smollm_prefill_f32", smollm, torch.float32, True, TOL_FLASH),
+        ("smollm_prefill_bf16", smollm, torch.bfloat16, True, TOL_BF16),
+        ("ragged_s1000_f32", (4, 9, 3, 1000, 1000, 64), torch.float32, True, TOL_FLASH),
+        ("olmo_head_d128_f32", (1, 16, 16, 512, 512, 128), torch.float32, True, TOL_FLASH),
+        ("granite_head_d128_bf16", (1, 32, 8, 512, 512, 128), torch.bfloat16, True,
+         TOL_BF16),
+    ]
+    flash_err = None
+    for i, (case, shape, dtype, causal, tol) in enumerate(flash_cases):
+        q, k, v = qkv(*shape, 100 + 3 * i, dtype)
+        out = flash_attention(q, k, v, causal=causal)
+        ref = flash_attention_ref(q, k, v, causal)
+        torch.cuda.synchronize()
+        check(out.shape == ref.shape and out.dtype == ref.dtype, case)
+        check(bool(torch.isfinite(out).all()), f"{case}: non-finite output")
+        err = float((out.float() - ref.float()).abs().max())
+        torch.testing.assert_close(out, ref, **tol)
+        emit({"phase": "kernels", "kernel": "flash_attention", "case": case,
+              "shape": list(shape), "dtype": str(dtype), "causal": causal,
+              "max_abs_err": err, "tol": tol, "ok": True})
+        if case == "smollm_prefill_bf16":
+            flash_err = err
+
+    q, k, v = qkv(*smollm, 7, torch.bfloat16)
+    fb, fby = flash_bound(*smollm, torch.bfloat16, True)
+    flash = {
+        "ms": time_ms(lambda: flash_attention(q, k, v, causal=True), flush),
+        "plain_ms": time_ms(lambda: flash_attention_ref(q, k, v, True, 512), flush,
+                            iters=5),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), flush),
+        "bound_ms": fb, "bound_by": fby, "max_abs_err": flash_err,
+        "case": "smollm_prefill_bf16 (B 4, Hq 9, Hkv 3, S 1024, D 64, causal)",
+    }
+    emit({"phase": "kernels", "kernel": "flash_attention", "case": "timing", **flash})
+
+    gemm_shapes = [(f"test_kernels_{v}x{f}x{g}_blk32", (v, f, g), torch.float32, 32,
+                    TOL_GEMM)
+                   for v, f, g in [(128, 128, 128), (96, 80, 72), (33, 17, 5),
+                                   (256, 64, 512)]]
+    gemm_shapes += [("cora_l0_f32", (2708, 1433, 16), torch.float32, 128, TOL_GEMM),
+                    ("smollm_w_gate_bf16", (4096, 576, 1536), torch.bfloat16, 128,
+                     TOL_BF16)]
+    numbers = {}
+    for i, (case, (v, f, g), dtype, blk, tol) in enumerate(gemm_shapes):
+        x = randn((v, f), 200 + i, dev).to(dtype)
+        w = randn((f, g), 300 + i, dev, scale=1.0 / np.sqrt(f)).to(dtype)
+        ref = gemm_ref(x, w)
+        for df in DATAFLOWS:
+            out = gemm(x, w, dataflow=df, block_v=blk, block_g=blk, block_f=blk)
+            torch.cuda.synchronize()
+            check(out.shape == ref.shape and out.dtype == ref.dtype, f"{case} {df}")
+            check(bool(torch.isfinite(out).all()), f"{case} {df}: non-finite output")
+            err = float((out.float() - ref.float()).abs().max())
+            torch.testing.assert_close(out, ref, **tol)
+            check(torch.equal(out, gemm(x, w, dataflow=df, block_v=blk, block_g=blk,
+                                        block_f=blk)), f"{case} {df}: not deterministic")
+            rec = {"phase": "kernels", "kernel": "gemm_dataflow", "case": case,
+                   "dataflow": df, "shape": [v, f, g], "dtype": str(dtype),
+                   "max_abs_err": err, "tol": tol, "deterministic": True, "ok": True}
+            if case in ("cora_l0_f32", "smollm_w_gate_bf16"):
+                b_ms, b_by = gemm_bound(v, f, g, dtype)
+                rec.update(
+                    ms=time_ms(lambda: gemm(x, w, dataflow=df), flush),
+                    plain_ms=time_ms(lambda: gemm_ref(x, w), flush, iters=5),
+                    library_ms=time_ms(lambda: torch.matmul(x, w), flush),
+                    bound_ms=b_ms, bound_by=b_by)
+                numbers[(case, df)] = rec
+            emit(rec)
+    cora = numbers[("cora_l0_f32", "output_stationary")]
+    gemm_nums = {k: cora[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                      "bound_by", "max_abs_err")}
+    gemm_nums["case"] = "cora_l0_f32 (2708 x 1433 @ 1433 x 16), output_stationary"
+    return {"flash_attention": flash, "gemm_dataflow": gemm_nums}
+
+
 def tiers(prog) -> list:
     from repro_torch.core.registry import lookup_kernel
 
@@ -363,6 +495,110 @@ def phase_serving(dev, counters) -> dict:
     return launches
 
 
+def phase_gemm(dev, counters) -> dict:
+    """The dataflow GEMM's entry point as a user calls it: ``gemm`` on
+    cora's layer-0 combination, once per dataflow."""
+    from repro_torch.kernels.gemm_dataflow import DATAFLOWS, gemm, gemm_ref
+
+    x = randn((2708, 1433), 20, dev)
+    w = randn((1433, 16), 21, dev, scale=1.0 / np.sqrt(1433))
+    reset_counts(counters)
+    outs = {df: gemm(x, w, dataflow=df) for df in DATAFLOWS}
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    check(launches["gemm_dataflow"] == len(DATAFLOWS),
+          f"gemm launched {launches['gemm_dataflow']} times")
+    ref = gemm_ref(x, w)
+    errs = {}
+    for df, out in outs.items():
+        torch.testing.assert_close(out, ref, **TOL_GEMM)
+        errs[df] = float((out - ref).abs().max())
+    emit({"phase": "gemm", "shape": [2708, 1433, 16], "launches": launches,
+          "max_abs_err": errs, "ok": True})
+    return launches
+
+
+def phase_lm_serve(dev, counters, batch=4, prompt_len=1024, new_tokens=32) -> dict:
+    """smollm-135m served at full width through ``generate``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import forward, init_params, make_inputs
+
+    cfg = get_config("smollm-135m")
+    params = init_params(cfg, torch.Generator().manual_seed(0), dev)
+    prompts = make_inputs(cfg, batch, prompt_len, seed=0, device=dev)
+    reset_counts(counters)
+    timings = {}
+    toks, lat = generate(cfg, params, prompts, new_tokens, timings=timings)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"flash_attention launched {launches['flash_attention']} times in one "
+          f"forward of {cfg.n_layers} layers")
+    check(toks.shape == (batch, new_tokens) and toks.dtype == torch.int32,
+          f"generate returned {tuple(toks.shape)} {toks.dtype}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab)).all()), "token ids out of range")
+
+    # the plain-version twin of the same run (no kernel launch)
+    twin, _ = generate(cfg, params, prompts, new_tokens, use_kernels=False)
+    agree = float((toks == twin).float().mean())
+    logits, _ = forward(cfg, params, prompts)
+    plain, _ = forward(cfg, params, prompts, use_kernels=False)
+    check(bool(torch.isfinite(logits).all()), "bf16 logits not finite")
+    diff = (logits.float() - plain.float())
+    rel_l2 = float(diff.norm() / plain.float().norm())
+    max_bf16 = float(diff.abs().max())
+    check(rel_l2 <= LM_BF16_REL_L2, f"bf16 logits rel L2 {rel_l2} > {LM_BF16_REL_L2}")
+    del logits, plain, diff
+
+    cfg32 = cfg.with_(dtype="float32")
+    params32 = init_params(cfg32, torch.Generator().manual_seed(0), dev)
+    before = counters["flash_attention"].launches
+    l32, _ = forward(cfg32, params32, prompts)
+    torch.cuda.synchronize()
+    check(counters["flash_attention"].launches - before == cfg.n_layers,
+          "f32 forward did not launch flash_attention once per layer")
+    p32, _ = forward(cfg32, params32, prompts, use_kernels=False)
+    check(bool(torch.isfinite(l32).all()), "f32 logits not finite")
+    err32 = float((l32 - p32).abs().max())
+    torch.testing.assert_close(l32, p32, **TOL_LM_F32)
+    del l32, p32, params32
+    emit({"phase": "lm_serve", "arch": cfg.name, "batch": batch,
+          "prompt_len": prompt_len, "new_tokens": new_tokens,
+          "prefill_s": timings["prefill_s"], "replay_s": timings["replay_s"],
+          "decode_s": timings["decode_s"],
+          "decode_step_ms_median": statistics.median(lat) * 1e3,
+          "launches": launches,
+          "bf16_logits_rel_l2_vs_plain": rel_l2,
+          "bf16_logits_max_abs_err_vs_plain": max_bf16,
+          "bf16_greedy_tokens_agree": agree,
+          "f32_logits_max_abs_err_vs_plain": err32, "tol_f32": TOL_LM_F32,
+          "ok": True})
+
+    # the other dense archs, full width, depth cut to 2, against their twins
+    for arch in ("tinyllama-1.1b", "olmo-1b", "granite-8b", "llava-next-34b",
+                 "musicgen-large"):
+        acfg = get_config(arch).with_(n_layers=2, dtype="float32")
+        gen = torch.Generator(device=dev).manual_seed(1)
+        ap = init_params(acfg, gen, dev)
+        inputs = make_inputs(acfg, 1, 256, seed=1, device=dev)
+        before = counters["flash_attention"].launches
+        out, _ = forward(acfg, ap, inputs)
+        torch.cuda.synchronize()
+        check(counters["flash_attention"].launches - before == acfg.n_layers,
+              f"{arch}: flash_attention not launched once per layer")
+        twin_out, _ = forward(acfg, ap, inputs, use_kernels=False)
+        check(bool(torch.isfinite(out).all()), f"{arch}: logits not finite")
+        torch.testing.assert_close(out, twin_out, **TOL_LM_F32)
+        emit({"phase": "lm_serve", "arch": arch, "depth": acfg.n_layers,
+              "head_dim": acfg.head_dim, "heads": [acfg.n_heads, acfg.n_kv_heads],
+              "max_abs_err_vs_plain": float((out - twin_out).abs().max()),
+              "ok": True})
+        del ap, out, twin_out
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -373,21 +609,28 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(src))
     import repro_torch  # noqa: F401
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.fused_agg_cmb import ops as fused_ops
+    from repro_torch.kernels.gemm_dataflow import ops as gemm_ops
     from repro_torch.kernels.spmm import ops as spmm_ops
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
-    phase_build([spmm_ops.LIBRARY, fused_ops.LIBRARY])
+    phase_build([spmm_ops.LIBRARY, fused_ops.LIBRARY, flash_ops.LIBRARY,
+                 gemm_ops.LIBRARY])
 
-    counters = {"spmm": spmm_ops.spmm, "fused_agg_cmb": fused_ops.fused_agg_cmb}
+    counters = {"spmm": spmm_ops.spmm, "fused_agg_cmb": fused_ops.fused_agg_cmb,
+                "flash_attention": flash_ops.flash_attention,
+                "gemm_dataflow": gemm_ops.gemm}
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
     numbers = phase_kernels(dev, flush)
+    numbers.update(phase_lm_kernels(dev, flush))
     launches = phase_main(dev, counters)
-    for k, n in phase_serving(dev, counters).items():
-        launches[k] += n
+    for phase in (phase_serving, phase_gemm, phase_lm_serve):
+        for k, n in phase(dev, counters).items():
+            launches[k] += n
     for k, n in launches.items():
         check(n > 0, f"{k} was never launched on the main path")
 
@@ -397,6 +640,12 @@ def main() -> int:
         "fused_agg_cmb": ("cuda",
                           "src/repro_torch/kernels/fused_agg_cmb/fused_agg_cmb.cu",
                           "src/repro/kernels/fused_agg_cmb/kernel.py:46"),
+        "flash_attention": ("cuda",
+                            "src/repro_torch/kernels/flash_attention/flash_attention.cu",
+                            "src/repro/kernels/flash_attention/kernel.py:65"),
+        "gemm_dataflow": ("cuda",
+                          "src/repro_torch/kernels/gemm_dataflow/gemm_dataflow.cu",
+                          "src/repro/kernels/gemm_dataflow/kernel.py:50"),
     }
     kernels = []
     for name, (route, source, replaces) in meta.items():
@@ -407,7 +656,7 @@ def main() -> int:
             "max_abs_err": nums["max_abs_err"], "ms": nums["ms"],
             "plain_ms": nums["plain_ms"], "bound_ms": nums["bound_ms"],
             "bound_by": nums["bound_by"], "library_ms": nums["library_ms"],
-            "ok": True,
+            "case": nums.get("case", "cora_l0_f32"), "ok": True,
         })
     emit({"kernels": kernels})
     print(card_line(), flush=True)

@@ -3,7 +3,9 @@
 The front door is :func:`repro_torch.compile`: search a model-level
 dataflow schedule (or accept one), lower it to executable kernel knobs, and
 get a frozen :class:`repro_torch.api.Program` that runs on the CUDA device
-(``device="cpu"`` to run the plain PyTorch versions on the CPU).
+(``device="cpu"`` to run the plain PyTorch versions on the CPU).  Dense-LM
+serving lives in :mod:`repro_torch.launch.serve` and
+:mod:`repro_torch.models`.
 
 Float32 matrix products run in full float32: importing the package turns
 TF32 off for ``torch.matmul`` (TF32 keeps about three decimal digits, which

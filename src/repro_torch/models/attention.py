@@ -1,0 +1,209 @@
+"""Attention: the LM-scale instance of the paper's multiphase taxonomy.
+
+The port of :mod:`repro.models.attention`.  QKᵀ -> softmax -> PV is a
+dependent GEMM-GEMM chain.  ``attn_policy`` selects the inter-phase
+dataflow:
+
+  * ``seq``    — materialize the (S x S) score matrix (paper Seq), plain
+                 PyTorch as in the reference.
+  * ``sp_opt`` — online softmax over key blocks: score tiles are produced
+                 and consumed on chip, never stored (paper SP-Optimized ==
+                 flash attention).  On a CUDA tensor this launches the
+                 hand-written kernel (:mod:`repro_torch.kernels.flash_attention`);
+                 on a CPU tensor it runs the kernel's plain version, the
+                 port of the reference's ``_attend_chunked``.
+
+Supports GQA (n_kv_heads < n_heads, grouped einsums — no KV repetition),
+sliding-window masks, and single-token decode against a (possibly
+ring-buffered) KV cache.  Decode stays plain PyTorch, as the reference
+computes it outside any kernel.  There is no device mesh in the port, so
+the reference's tensor-parallel head alignment is always the identity.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..kernels.flash_attention import attend
+# the SP-Optimized online softmax over KV chunks in plain PyTorch: the
+# flash kernel's plain version, kept beside the kernel
+from ..kernels.flash_attention.ref import attend_chunked as _attend_chunked
+from .config import ArchConfig
+from .layers import normal, rope, torch_dtype
+
+NEG_INF = -1e30
+INT32_MAX = int(np.iinfo(np.int32).max)
+
+
+def init_attention(cfg: ArchConfig, generator: torch.Generator,
+                   device=None) -> dict:
+    d, hd = cfg.d_model, cfg.head_dim
+    dev, dt = resolve_device(device), torch_dtype(cfg)
+    s = 1.0 / np.sqrt(d)
+    return {
+        "wq": normal(generator, (d, cfg.n_heads * hd), s, dt, dev),
+        "wk": normal(generator, (d, cfg.n_kv_heads * hd), s, dt, dev),
+        "wv": normal(generator, (d, cfg.n_kv_heads * hd), s, dt, dev),
+        "wo": normal(generator, (cfg.n_heads * hd, d), 1.0 / np.sqrt(d), dt, dev),
+    }
+
+
+def head_alignment(cfg: ArchConfig, ts: int | None = None):
+    """TP head alignment: (kv_rep, g_new, aligned?).
+
+    ``ts`` is the tensor-parallel size; the port has no mesh, so it
+    defaults to 1, where no alignment is needed.  For ``ts > 1`` this
+    reproduces the reference's arithmetic (pad the per-KV query groups and
+    replicate KV heads when the FLOP overhead is <= 2x).
+    """
+    ts = 1 if ts is None else ts
+    hkv = cfg.n_kv_heads
+    g = cfg.n_heads // hkv
+    if ts <= 1 or (hkv % ts == 0 and cfg.n_heads % ts == 0):
+        return 1, g, ts > 1
+    rep = math.lcm(hkv, ts) // hkv
+    g_new = -(-g // rep)
+    if (hkv * rep * g_new) / (hkv * g) > 2.0:
+        return 1, g, False
+    return rep, g_new, True
+
+
+def aligned_kv_heads(cfg: ArchConfig, ts: int | None = None) -> int:
+    rep, _, _ = head_alignment(cfg, ts)
+    return cfg.n_kv_heads * rep
+
+
+def _align_weights(cfg: ArchConfig, p: dict):
+    """Projection weights as the heads are laid out: without a mesh
+    :func:`head_alignment` gives ``rep == 1``, so the weights themselves."""
+    return p["wq"], p["wk"], p["wv"], p["wo"]
+
+
+def _project_qkv(cfg: ArchConfig, p: dict, x: torch.Tensor, positions):
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    wq, wk, wv, _ = _align_weights(cfg, p)
+    q = (x @ wq).reshape(b, s, cfg.n_heads, hd)
+    k = (x @ wk).reshape(b, s, cfg.n_kv_heads, hd)
+    v = (x @ wv).reshape(b, s, cfg.n_kv_heads, hd)
+    return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
+
+
+def _group(q: torch.Tensor, n_kv: int) -> torch.Tensor:
+    """(B, S, H, D) -> (B, S, Hkv, G, D) for grouped-query einsums."""
+    b, s, h, d = q.shape
+    return q.reshape(b, s, n_kv, h // n_kv, d)
+
+
+def _attend_seq(q, k, v, q_pos, k_pos, window: int) -> torch.Tensor:
+    """Materialized-score attention (the Seq baseline)."""
+    qg = _group(q, k.shape[2]).float()
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float())
+    scores = scores / np.sqrt(q.shape[-1])
+    qp, kp = q_pos.long()[:, None], k_pos.long()[None, :]
+    mask = kp <= qp
+    if window > 0:
+        mask &= kp > qp - window
+    scores = torch.where(mask[None, None, None], scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    b, s = q.shape[:2]
+    return out.reshape(b, s, -1, q.shape[-1]).to(q.dtype)
+
+
+def attention(
+    cfg: ArchConfig,
+    p: dict,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    window: int = 0,
+    use_kernels: bool = True,
+) -> torch.Tensor:
+    """Full-sequence (training / prefill) attention.
+
+    ``sp_opt`` goes through :func:`repro_torch.kernels.flash_attention.attend`
+    (the kernel on a CUDA tensor, its plain version on a CPU tensor);
+    ``use_kernels=False`` asks for the plain version on any device, which
+    is how a caller builds the plain twin of a run on the card.
+    """
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(cfg, p, x, positions)
+    pos1 = positions[0] if positions.dim() > 1 else positions
+    if cfg.attn_policy == "seq":
+        out = _attend_seq(q, k, v, pos1, pos1, window)
+    elif use_kernels:
+        out = attend(q, k, v, pos1, pos1, window, cfg.attn_chunk)
+    else:
+        out = _attend_chunked(q, k, v, pos1, pos1, window, cfg.attn_chunk)
+    _, _, _, wo = _align_weights(cfg, p)
+    return out.reshape(b, s, -1) @ wo
+
+
+# ---------------------------------------------------------------------------
+# Decode with KV cache
+# ---------------------------------------------------------------------------
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor  # (B, S_cache, Hkv, D) — ring buffer when windowed
+    v: torch.Tensor
+
+    @classmethod
+    def zeros(cls, cfg: ArchConfig, batch: int, length: int, window: int = 0,
+              device=None):
+        size = min(length, window) if window > 0 else length
+        shape = (batch, size, aligned_kv_heads(cfg), cfg.head_dim)
+        dev, dt = resolve_device(device), torch_dtype(cfg)
+        return cls(torch.zeros(shape, dtype=dt, device=dev),
+                   torch.zeros(shape, dtype=dt, device=dev))
+
+
+def decode_attention(
+    cfg: ArchConfig,
+    p: dict,
+    x: torch.Tensor,  # (B, 1, d)
+    cache: KVCache,
+    cur_index: int,  # absolute position of this token
+    *,
+    window: int = 0,
+) -> tuple[torch.Tensor, KVCache]:
+    """One-token decode against the cache; returns (out, cache).
+
+    Unlike the reference, which returns a new cache, this writes the new
+    key and value into ``cache``'s tensors in place and returns the same
+    cache (a whole-cache copy per token would dominate decode)."""
+    b = x.shape[0]
+    cur_index = int(cur_index)
+    positions = torch.full((b, 1), cur_index, dtype=torch.int32, device=x.device)
+    q, k_new, v_new = _project_qkv(cfg, p, x, positions)
+    size = cache.k.shape[1]
+    slot = cur_index % size if window > 0 else cur_index
+    cache.k[:, slot] = k_new[:, 0]
+    cache.v[:, slot] = v_new[:, 0]
+
+    # absolute positions held by each cache slot
+    slots = torch.arange(size, dtype=torch.int64, device=x.device)
+    if window > 0:
+        # ring buffer: slot s holds the most recent position p with
+        # p % size == s and p <= cur_index
+        k_pos = cur_index - (slot - slots) % size
+    else:
+        k_pos = slots
+    valid = (k_pos <= cur_index) & (k_pos >= 0)
+    if window > 0:
+        valid &= k_pos > cur_index - window
+    k_pos = torch.where(valid, k_pos, INT32_MAX)
+
+    qg = _group(q, cache.k.shape[2]).float() / np.sqrt(cfg.head_dim)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, cache.k.float())
+    s = torch.where((k_pos <= cur_index)[None, None, None, None], s, NEG_INF)
+    pattn = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", pattn, cache.v.float())
+    out = out.reshape(b, 1, -1).to(x.dtype)
+    _, _, _, wo = _align_weights(cfg, p)
+    return out @ wo, cache

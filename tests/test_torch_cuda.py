@@ -12,8 +12,17 @@ import torch
 import repro_torch
 from repro_torch.gnn import GNNConfig
 from repro_torch.graphs import from_edges, load_dataset
+from repro_torch.configs import get_config
+from repro_torch.kernels.flash_attention import (
+    attend,
+    attend_chunked,
+    attention_ref,
+    flash_attention,
+)
 from repro_torch.kernels.fused_agg_cmb import fused_agg_cmb, fused_ref
+from repro_torch.kernels.gemm_dataflow import DATAFLOWS, gemm, gemm_ref
 from repro_torch.kernels.spmm import spmm, spmm_ref, spmm_streamed
+from repro_torch.models import forward, init_params, make_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -105,3 +114,85 @@ def test_kernel_tier_matches_eager_tier_on_card(dev, policy, order):
     assert counter.launches == before + 2  # one launch per layer
     eager = prog.degraded(use_pallas=False).run(params, x)
     torch.testing.assert_close(out, eager, rtol=2e-4, atol=2e-4)
+
+
+# (B, Hq, Hkv, Sq, Sk, D): the reference's kernel-test shapes, GQA, a ragged
+# length, every head_dim class of the kernel (8 .. 128)
+FLASH_SHAPES = [(2, 4, 2, 96, 96, 32), (1, 8, 1, 64, 128, 16), (2, 2, 2, 33, 33, 64),
+                (1, 9, 3, 200, 200, 64), (1, 4, 4, 70, 45, 8), (1, 2, 1, 130, 130, 128),
+                (1, 3, 3, 17, 300, 40)]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d", FLASH_SHAPES)
+def test_flash_kernel_matches_plain(dev, b, hq, hkv, sq, sk, d, causal):
+    q, k, v = (randn(s, i, dev) for i, s in
+               enumerate([(b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d)]))
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    rep = hq // hkv
+    kr = k.repeat_interleave(rep, dim=1).reshape(b * hq, sk, d)
+    vr = v.repeat_interleave(rep, dim=1).reshape(b * hq, sk, d)
+    ref = attention_ref(q.reshape(b * hq, sq, d), kr, vr, causal=causal)
+    torch.testing.assert_close(out.reshape(b * hq, sq, d), ref, rtol=2e-4, atol=2e-5)
+
+
+def test_flash_kernel_bf16_matches_plain(dev):
+    q, k, v = (randn((2, 9, 256, 64), i, dev, torch.bfloat16) for i in range(3))
+    out = flash_attention(q, k[:, :3], v[:, :3], causal=True)
+    assert out.dtype == torch.bfloat16
+    plain = attend_chunked(q.transpose(1, 2), k[:, :3].transpose(1, 2),
+                           v[:, :3].transpose(1, 2), torch.arange(256, device=dev),
+                           torch.arange(256, device=dev))
+    torch.testing.assert_close(out, plain.transpose(1, 2), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("window,offset", [(0, 0), (0, 9), (7, 3)])
+def test_attend_kernel_masks_on_positions(dev, window, offset):
+    b, s, hq, hkv, d = 2, 150, 6, 2, 32
+    q = randn((b, s, hq, d), 1, dev)
+    k, v = randn((b, s, hkv, d), 2, dev), randn((b, s, hkv, d), 3, dev)
+    pos = torch.arange(s, device=dev, dtype=torch.int32) + offset
+    out = attend(q, k, v, pos, pos, window, 64)
+    plain = attend_chunked(q, k, v, pos, pos, window, 64)
+    torch.testing.assert_close(out, plain, rtol=2e-4, atol=2e-5)
+
+
+GEMM_SHAPES = [(128, 128, 128, 32), (96, 80, 72, 32), (33, 17, 5, 32), (256, 64, 512, 32),
+               (700, 300, 200, 128), (2708, 1433, 16, 128)]
+
+
+@pytest.mark.parametrize("dataflow", DATAFLOWS)
+@pytest.mark.parametrize("v,f,g,blk", GEMM_SHAPES)
+def test_gemm_kernel_matches_plain(dev, dataflow, v, f, g, blk):
+    x, w = randn((v, f), v, dev), randn((f, g), g, dev)
+    before = gemm.launches
+    out = gemm(x, w, dataflow=dataflow, block_v=blk, block_g=blk, block_f=blk)
+    torch.cuda.synchronize()
+    assert gemm.launches == before + 1
+    torch.testing.assert_close(out, gemm_ref(x, w), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dataflow", DATAFLOWS)
+def test_gemm_kernel_bf16_matches_plain_and_is_deterministic(dev, dataflow):
+    x = randn((300, 200), 1, dev, torch.bfloat16)
+    w = randn((200, 150), 2, dev, torch.bfloat16)
+    out = gemm(x, w, dataflow=dataflow)
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out, gemm_ref(x, w), rtol=3e-2, atol=3e-2)
+    xf, wf = randn((1000, 700), 3, dev), randn((700, 300), 4, dev)
+    assert torch.equal(gemm(xf, wf, dataflow=dataflow), gemm(xf, wf, dataflow=dataflow))
+
+
+def test_lm_forward_launches_flash_per_layer_and_matches_plain_twin(dev):
+    cfg = get_config("smollm-135m").reduced(n_layers=3)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    toks = make_inputs(cfg, 2, 100, seed=1, device=dev)
+    before = flash_attention.launches
+    logits, _ = forward(cfg, params, toks)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + cfg.n_layers
+    plain, _ = forward(cfg, params, toks, use_kernels=False)
+    torch.testing.assert_close(logits, plain, rtol=1e-3, atol=1e-3)

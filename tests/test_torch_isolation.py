@@ -17,7 +17,12 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 def test_import_pulls_in_no_jax_and_no_reference():
     code = (
         "import sys, repro_torch, repro_torch.gnn, repro_torch.graphs, "
-        "repro_torch.kernels.spmm, repro_torch.kernels.fused_agg_cmb\n"
+        "repro_torch.kernels.spmm, repro_torch.kernels.fused_agg_cmb, "
+        "repro_torch.kernels.flash_attention, repro_torch.kernels.gemm_dataflow, "
+        "repro_torch.models, repro_torch.configs, repro_torch.launch.serve\n"
+        "import repro_torch.configs.gcn_paper\n"
+        "from repro_torch.configs import all_configs\n"
+        "all_configs()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n"
