@@ -6,7 +6,11 @@ any failure.
 Phases, one JSON line each (no phase's error is caught):
 
 1. build      — compile every CUDA kernel from the sources in the checkout,
-                all ``nvcc`` processes started together.
+                all ``nvcc`` processes started together; per kernel
+                instantiation, ptxas's register and spill lines and the
+                count of HGMMA (wgmma) and UTMALDG (TMA load) instructions
+                in its SASS (a tensor-core instantiation without both
+                fails the run).
 2. kernels    — each kernel against its plain PyTorch version on the card
                 at the main paths' shapes, with its time, the plain
                 version's, one PyTorch library call's where one computes
@@ -14,7 +18,11 @@ Phases, one JSON line each (no phase's error is caught):
                 layer 0; flash attention at the reference's test shapes,
                 smollm-135m prefill (f32, bf16), a ragged S and D = 128;
                 ``gemm`` under each dataflow at the reference's test shapes,
-                cora's layer-0 combination and smollm's ``w_gate``.
+                cora's layer-0 combination, smollm's ``w_gate``, a bf16
+                shape TMA refuses and one past a resident slab.  A kernel
+                and its library call are timed in alternation, L2 flushed
+                before each: as direct calls (``ms``, ``library_ms``) and
+                as CUDA-graph replays (``graph_ms``, ``library_graph_ms``).
 3. main       — ``repro_torch.compile`` on cora at the paper's Kipf widths
                 (1433 -> 16 -> 8): the searched schedule and forced
                 (sp_opt, AC), (seq, AC), (seq, CA) schedules, each on the
@@ -39,6 +47,8 @@ the ``{"kernels": [...]}`` line reports them.  The last line is
 passed.  Weights and data are random, made from fixed seeds.
 """
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -61,6 +71,11 @@ TOL_LM_F32 = dict(rtol=1e-3, atol=1e-3)
 # two attention outputs differ by at most about one bf16 rounding (2^-8) in
 # some elements, and that difference is carried through 30 bf16 layers
 LM_BF16_REL_L2 = 3e-2
+# bf16 flash on the tensor cores against the f32 plain version on the same
+# bf16 inputs, as the largest relative L2 error of one output row: the
+# output's bf16 rounding and P's give ~2e-3-6e-3; a key block dropped or
+# counted twice moves a late row by far more.  Held beside TOL_BF16.
+FLASH_ROW_REL_L2 = 1e-2
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # dense, per s
 
@@ -86,19 +101,63 @@ def card_line() -> str:
 
 def time_ms(fn, flush, iters=20, warmup=3) -> float:
     """Median CUDA-event time of one call, L2 flushed before each."""
-    for _ in range(warmup):
+    return time_pair(fn, None, flush, iters, warmup)[0]
+
+
+def graphed(fn):
+    """``fn`` captured into a CUDA graph after eager warm-up calls; returns
+    its replay.  A replay times the device work of the call without the
+    host's Python and launch cost."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
         fn()
-    times = []
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph.replay
+
+
+def time_pair(kernel, library, flush, iters=20, warmup=3) -> tuple[float, float | None]:
+    """Median CUDA-event times of a kernel and of its library call (None:
+    there is none), timed in alternation in one loop, L2 flushed before
+    each call, so both see the same card state."""
+    fns = [kernel] + ([library] if library is not None else [])
+    for fn in fns:
+        for _ in range(warmup):
+            fn()
+    times = [[] for _ in fns]
     for _ in range(iters):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        for fn, ts in zip(fns, times):
+            flush.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            ts.append(start.elapsed_time(end))
+    meds = [statistics.median(ts) for ts in times]
+    return meds[0], (meds[1] if library is not None else None)
+
+
+def timed(kernel, library, plain, flush) -> dict:
+    """The kernel's and its library call's times, the two in alternation:
+    as direct calls (``ms``, ``library_ms``: events around the call, the
+    wrapper's host cost included, as every PR has timed them) and as
+    CUDA-graph replays (``graph_ms``, ``library_graph_ms``: device work
+    only); the replays' ratio ``kernel_over_library``; and the plain
+    version's time."""
+    ms, lib_ms = time_pair(kernel, library, flush)
+    g_ms, g_lib = time_pair(graphed(kernel),
+                            graphed(library) if library is not None else None, flush)
+    return {"ms": ms, "library_ms": lib_ms, "graph_ms": g_ms, "library_graph_ms": g_lib,
+            "kernel_over_library": g_ms / g_lib if g_lib else None,
+            "plain_ms": time_ms(plain, flush, iters=5)}
 
 
 def bound_ms(n_bytes: float, n_ops: float, dtype) -> tuple[float, str]:
@@ -117,18 +176,83 @@ def randn(shape, seed, dev, scale=1.0):
     return torch.as_tensor(a * np.float32(scale), device=dev)
 
 
+def _cuda_tool(name: str) -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    found = shutil.which(name)
+    if found:
+        return found
+    path = Path(CUDA_HOME or "/usr/local/cuda", "bin", name)
+    check(path.exists(), f"{name} not found")
+    return str(path)
+
+
+def _demangle(names: list[str]) -> list[str]:
+    tool = shutil.which("c++filt")
+    if not tool or not names:
+        return names
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True, timeout=60).stdout.splitlines()
+    return out if len(out) == len(names) else names
+
+
+def ptxas_report(log: str) -> dict:
+    """ptxas's register, spill and shared-memory lines per kernel entry."""
+    entries, current = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = m.group(1)
+            entries[current] = []
+        elif current and re.search(r"registers|spill|smem", line):
+            entries[current].append(re.sub(r"^ptxas info\s*:\s*", "", line.strip()))
+    return dict(zip(_demangle(list(entries)), entries.values()))
+
+
+def sass_counts(so: Path) -> dict:
+    """HGMMA (wgmma) and UTMALDG (TMA load) instructions per kernel in the
+    library's SASS."""
+    sass = subprocess.run([_cuda_tool("cuobjdump"), "-sass", str(so)],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    counts, current = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            current = m.group(1)
+            counts[current] = {"HGMMA": 0, "UTMALDG": 0}
+        elif current:
+            for op in ("HGMMA", "UTMALDG"):
+                counts[current][op] += len(re.findall(rf"\b{op}\b", line))
+    return dict(zip(_demangle(list(counts)), counts.values()))
+
+
+#: the tensor-core kernels, by the name their instantiations carry
+TENSOR_CORE_KERNELS = {"gemm_dataflow": "tc_kernel", "flash_attention": "flash_tc_kernel"}
+
+
 def phase_build(libs) -> None:
     from repro_torch.kernels.common import build_libraries
 
     seconds = build_libraries(libs)
-    ptxas = []
+    report = {}
     for lib in libs:
         log = lib.log_path()
-        text = log.read_text() if log.exists() else ""
-        ptxas += [f"{lib.name}: {ln.strip()}" for ln in text.splitlines()
-                  if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "seconds": round(seconds, 3),
-          "card": card_line(), "ptxas": ptxas})
+        sass = sass_counts(lib.so_path())
+        report[lib.name] = {
+            "ptxas": ptxas_report(log.read_text() if log.exists() else ""),
+            "sass": {fn: c for fn, c in sass.items() if c["HGMMA"] or c["UTMALDG"]},
+            "HGMMA": sum(c["HGMMA"] for c in sass.values()),
+            "UTMALDG": sum(c["UTMALDG"] for c in sass.values()),
+        }
+        tc = TENSOR_CORE_KERNELS.get(lib.name)
+        if tc:
+            inst = {fn: c for fn, c in sass.items() if tc + "<" in fn or tc + "I" in fn}
+            check(bool(inst), f"{lib.name}: no {tc} instantiation in the SASS")
+            for fn, c in inst.items():
+                check(c["HGMMA"] > 0 and c["UTMALDG"] > 0,
+                      f"{lib.name}: {fn} has {c} in its SASS")
+    emit({"phase": "build", "seconds": round(seconds, 3), "card": card_line(),
+          "libraries": report})
 
 
 def phase_kernels(dev, flush) -> dict:
@@ -212,17 +336,14 @@ def phase_kernels(dev, flush) -> dict:
     fu_bound, fu_by = bound_ms(fu_bytes, 2 * nnz * f + 2 * v * f * g, x.dtype)
     numbers = {
         "spmm": {
-            "ms": time_ms(lambda: spmm(idx, wts, x), flush),
-            "plain_ms": time_ms(lambda: spmm_ref(idx, wts, x), flush, iters=5),
-            "library_ms": time_ms(lambda: torch.sparse.mm(csr, x), flush),
+            **timed(lambda: spmm(idx, wts, x), lambda: torch.sparse.mm(csr, x),
+                    lambda: spmm_ref(idx, wts, x), flush),
             "bound_ms": sp_bound, "bound_by": sp_by, "bytes": sp_bytes,
         },
         "fused_agg_cmb": {
-            "ms": time_ms(lambda: fused_agg_cmb(idx, wts, x, w, band_size=128,
-                                                block_f=512), flush),
-            "plain_ms": time_ms(lambda: fused_ref(idx, wts, x, w), flush,
-                                iters=5),
-            "library_ms": None,  # no single PyTorch call computes (A @ X) @ W
+            # no single PyTorch call computes (A @ X) @ W
+            **timed(lambda: fused_agg_cmb(idx, wts, x, w, band_size=128, block_f=512),
+                    None, lambda: fused_ref(idx, wts, x, w), flush),
             "bound_ms": fu_bound, "bound_by": fu_by, "bytes": fu_bytes,
         },
     }
@@ -253,8 +374,8 @@ def phase_lm_kernels(dev, flush) -> dict:
     returns their numbers for the final ``kernels`` line."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
-    from repro_torch.kernels.gemm_dataflow import DATAFLOWS, gemm, gemm_ref
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref, route
+    from repro_torch.kernels.gemm_dataflow import DATAFLOWS, gemm, gemm_ref, plan
 
     def qkv(b, hq, hkv, sq, sk, d, seed, dtype=torch.float32):
         return (randn((b, hq, sq, d), seed, dev).to(dtype),
@@ -286,20 +407,28 @@ def phase_lm_kernels(dev, flush) -> dict:
         check(bool(torch.isfinite(out).all()), f"{case}: non-finite output")
         err = float((out.float() - ref.float()).abs().max())
         torch.testing.assert_close(out, ref, **tol)
-        emit({"phase": "kernels", "kernel": "flash_attention", "case": case,
-              "shape": list(shape), "dtype": str(dtype), "causal": causal,
-              "max_abs_err": err, "tol": tol, "ok": True})
+        rec = {"phase": "kernels", "kernel": "flash_attention", "case": case,
+               "shape": list(shape), "dtype": str(dtype), "causal": causal,
+               "route": route(dtype, [(t.shape, t.stride()) for t in (q, k, v, out)],
+                              [t.data_ptr() for t in (q, k, v, out)]),
+               "max_abs_err": err, "tol": tol}
+        if dtype == torch.bfloat16:
+            ref32 = flash_attention_ref(q.float(), k.float(), v.float(), causal)
+            row = float(((out.float() - ref32).norm(dim=-1) / ref32.norm(dim=-1)).max())
+            check(row <= FLASH_ROW_REL_L2,
+                  f"{case}: row relative L2 {row} > {FLASH_ROW_REL_L2} against f32")
+            rec.update(row_rel_l2_vs_f32=row, row_rel_l2_limit=FLASH_ROW_REL_L2)
+        emit({**rec, "ok": True})
         if case == "smollm_prefill_bf16":
             flash_err = err
 
     q, k, v = qkv(*smollm, 7, torch.bfloat16)
     fb, fby = flash_bound(*smollm, torch.bfloat16, True)
     flash = {
-        "ms": time_ms(lambda: flash_attention(q, k, v, causal=True), flush),
-        "plain_ms": time_ms(lambda: flash_attention_ref(q, k, v, True, 512), flush,
-                            iters=5),
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), flush),
+        **timed(lambda: flash_attention(q, k, v, causal=True),
+                lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                       enable_gqa=True),
+                lambda: flash_attention_ref(q, k, v, True, 512), flush),
         "bound_ms": fb, "bound_by": fby, "max_abs_err": flash_err,
         "case": "smollm_prefill_bf16 (B 4, Hq 9, Hkv 3, S 1024, D 64, causal)",
     }
@@ -311,7 +440,11 @@ def phase_lm_kernels(dev, flush) -> dict:
                                    (256, 64, 512)]]
     gemm_shapes += [("cora_l0_f32", (2708, 1433, 16), torch.float32, 128, TOL_GEMM),
                     ("smollm_w_gate_bf16", (4096, 576, 1536), torch.bfloat16, 128,
-                     TOL_BF16)]
+                     TOL_BF16),
+                    # rows of 150 bf16 (300 bytes): TMA refuses w, CUDA cores
+                    ("ragged_no_tma_bf16", (300, 200, 150), torch.bfloat16, 128, TOL_BF16),
+                    # F past one resident slab: slab partials in the workspace
+                    ("two_slabs_bf16", (1000, 1216, 264), torch.bfloat16, 128, TOL_BF16)]
     numbers = {}
     for i, (case, (v, f, g), dtype, blk, tol) in enumerate(gemm_shapes):
         x = randn((v, f), 200 + i, dev).to(dtype)
@@ -326,22 +459,26 @@ def phase_lm_kernels(dev, flush) -> dict:
             torch.testing.assert_close(out, ref, **tol)
             check(torch.equal(out, gemm(x, w, dataflow=df, block_v=blk, block_g=blk,
                                         block_f=blk)), f"{case} {df}: not deterministic")
+            pl = plan(v, f, g, dtype, df, x_ptr=x.data_ptr(), w_ptr=w.data_ptr())
             rec = {"phase": "kernels", "kernel": "gemm_dataflow", "case": case,
                    "dataflow": df, "shape": [v, f, g], "dtype": str(dtype),
+                   "route": pl.route, "grid": list(pl.grid), "nslab": pl.nslab,
                    "max_abs_err": err, "tol": tol, "deterministic": True, "ok": True}
             if case in ("cora_l0_f32", "smollm_w_gate_bf16"):
                 b_ms, b_by = gemm_bound(v, f, g, dtype)
-                rec.update(
-                    ms=time_ms(lambda: gemm(x, w, dataflow=df), flush),
-                    plain_ms=time_ms(lambda: gemm_ref(x, w), flush, iters=5),
-                    library_ms=time_ms(lambda: torch.matmul(x, w), flush),
-                    bound_ms=b_ms, bound_by=b_by)
+                rec.update(**timed(lambda: gemm(x, w, dataflow=df),
+                                   lambda: torch.matmul(x, w), lambda: gemm_ref(x, w),
+                                   flush),
+                           bound_ms=b_ms, bound_by=b_by)
                 numbers[(case, df)] = rec
             emit(rec)
-    cora = numbers[("cora_l0_f32", "output_stationary")]
-    gemm_nums = {k: cora[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                      "bound_by", "max_abs_err")}
+    keys = ("ms", "plain_ms", "library_ms", "graph_ms", "library_graph_ms",
+            "kernel_over_library", "bound_ms", "bound_by", "max_abs_err", "route")
+    gemm_nums = {k: numbers[("cora_l0_f32", "output_stationary")][k] for k in keys}
     gemm_nums["case"] = "cora_l0_f32 (2708 x 1433 @ 1433 x 16), output_stationary"
+    # every timed case, smollm's w_gate in bf16 beside cora's layer 0 in f32
+    gemm_nums["cases"] = {f"{case} {df}": {k: rec[k] for k in keys}
+                          for (case, df), rec in numbers.items()}
     return {"flash_attention": flash, "gemm_dataflow": gemm_nums}
 
 
@@ -521,6 +658,7 @@ def phase_gemm(dev, counters) -> dict:
 def phase_lm_serve(dev, counters, batch=4, prompt_len=1024, new_tokens=32) -> dict:
     """smollm-135m served at full width through ``generate``."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels.common import measure_wall
     from repro_torch.launch.serve import generate
     from repro_torch.models import forward, init_params, make_inputs
 
@@ -544,6 +682,11 @@ def phase_lm_serve(dev, counters, batch=4, prompt_len=1024, new_tokens=32) -> di
     agree = float((toks == twin).float().mean())
     logits, _ = forward(cfg, params, prompts)
     plain, _ = forward(cfg, params, prompts, use_kernels=False)
+    # the prefill forward warmed up (generate's first call pays one-time
+    # costs): host clock around each call, synchronised, median of 3
+    prefill_ms = {route: 1e3 * measure_wall(
+        lambda: forward(cfg, params, prompts, use_kernels=kern), warmup=1, iters=3)
+        for route, kern in (("kernels", True), ("plain", False))}
     check(bool(torch.isfinite(logits).all()), "bf16 logits not finite")
     diff = (logits.float() - plain.float())
     rel_l2 = float(diff.norm() / plain.float().norm())
@@ -566,6 +709,7 @@ def phase_lm_serve(dev, counters, batch=4, prompt_len=1024, new_tokens=32) -> di
     emit({"phase": "lm_serve", "arch": cfg.name, "batch": batch,
           "prompt_len": prompt_len, "new_tokens": new_tokens,
           "prefill_s": timings["prefill_s"], "replay_s": timings["replay_s"],
+          "prefill_forward_ms_median": prefill_ms,
           "decode_s": timings["decode_s"],
           "decode_step_ms_median": statistics.median(lat) * 1e3,
           "launches": launches,
@@ -656,7 +800,10 @@ def main() -> int:
             "max_abs_err": nums["max_abs_err"], "ms": nums["ms"],
             "plain_ms": nums["plain_ms"], "bound_ms": nums["bound_ms"],
             "bound_by": nums["bound_by"], "library_ms": nums["library_ms"],
-            "case": nums.get("case", "cora_l0_f32"), "ok": True,
+            "case": nums.get("case", "cora_l0_f32"),
+            **{k: nums[k] for k in ("graph_ms", "library_graph_ms",
+                                    "kernel_over_library", "cases") if k in nums},
+            "ok": True,
         })
     emit({"kernels": kernels})
     print(card_line(), flush=True)

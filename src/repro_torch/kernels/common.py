@@ -3,7 +3,8 @@
 Every hand-written kernel of this package is one ``.cu`` file beside its
 ``ops.py`` with a plain C interface.  :class:`CudaLibrary` compiles it with
 ``nvcc`` for ``sm_90a`` into a shared library under ``<repo>/build/kernels``
-at first use, keyed by a hash of the source and the flags, and loads it
+at first use, keyed by a hash of the source, the local headers it
+includes and the flags, and loads it
 with :mod:`ctypes`.  Nothing is built or loaded when a module is imported:
 the CPU tests import every module, and the CPU has no ``nvcc``.
 """
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -32,6 +34,9 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+
+
+_LOCAL_INCLUDE = re.compile(r'\s*#\s*include\s+"([^"]+)"')
 
 
 def cdiv(a: int, b: int) -> int:
@@ -102,8 +107,25 @@ class CudaLibrary:
     def name(self) -> str:
         return self.source.stem
 
+    def sources(self) -> list[Path]:
+        """The ``.cu`` and every local header it includes (``#include
+        "..."``, followed recursively), in a fixed order."""
+        seen, todo = [], [self.source.resolve()]
+        while todo:
+            path = todo.pop(0)
+            if path in seen:
+                continue
+            seen.append(path)
+            for line in path.read_text().splitlines():
+                m = _LOCAL_INCLUDE.match(line)
+                if m:
+                    todo.append((path.parent / m.group(1)).resolve())
+        return seen
+
     def so_path(self) -> Path:
-        h = hashlib.sha256(self.source.read_bytes())
+        h = hashlib.sha256()
+        for path in self.sources():
+            h.update(path.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"{self.name}-{h.hexdigest()[:16]}.so"
 

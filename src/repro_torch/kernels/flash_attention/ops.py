@@ -12,11 +12,14 @@ Two entry points launch the one kernel:
 The kernel reads through strides, so neither layout is copied, and reads
 KV head ``h // (Hq // Hkv)`` for query head ``h`` (GQA without repeating
 K/V).  A CPU tensor goes to the plain version (``ref.py``); a CUDA tensor
-launches the kernel or raises.  ``block_q`` / ``block_k`` / ``chunk`` are
-schedule knobs of the reference: the kernel walks 64 x 64 tiles, and keys
-are visited in increasing order whatever the tiling.
+launches the kernel or raises.  :func:`route` picks the kernel's route:
+tensor cores for bf16 whose strides TMA takes, CUDA cores otherwise.
+``block_q`` / ``block_k`` / ``chunk`` are schedule knobs of the reference:
+the kernel walks its own 64 x 64 tiles, and keys are visited in
+increasing order whatever the tiling.
 """
 import ctypes
+import functools
 from pathlib import Path
 
 import numpy as np
@@ -29,8 +32,33 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 LIBRARY = CudaLibrary(
     Path(__file__).with_name("flash_attention.cu"),
     {"flash_attention_launch":
-        [_P] * 6 + [_I] * 8 + [ctypes.c_float] + [_L] * 12 + [_I, _P]},
+        [_P] * 6 + [_I] * 8 + [ctypes.c_float] + [_L] * 12 + [_I, _I, _P]},
 )
+ROUTES = ("cuda_cores", "tensor_cores")
+
+
+def route(dtype, views, ptrs) -> str:
+    """The kernel's route for q, k, v and out, each given as the (shape,
+    element strides) of its (B, H, S, D) view (``views``) and its data
+    pointer (``ptrs``).
+    Tensor cores need bf16 whose q, k and v TMA can address: every stride
+    that steps (an extent above 1) a positive multiple of 16 bytes, bases
+    16-byte aligned; and an output written in bf16 pairs (even strides,
+    4-byte aligned).  Everything else takes the CUDA-core route."""
+    if dtype != torch.bfloat16:
+        return "cuda_cores"
+    *ins, out = views
+    *in_ptrs, out_ptr = ptrs
+    for (shape, strides), ptr in zip(ins, in_ptrs):
+        if ptr % 16:
+            return "cuda_cores"
+        for n, st in zip(shape[:3], strides[:3]):
+            if n > 1 and (st <= 0 or (2 * st) % 16):
+                return "cuda_cores"
+    shape, strides = out
+    if out_ptr % 4 or any(n > 1 and st % 2 for n, st in zip(shape[:3], strides[:3])):
+        return "cuda_cores"
+    return "tensor_cores"
 
 
 def _check(name, q, k, v):
@@ -63,6 +91,8 @@ def _launch(q, k, v, out, q_pos, k_pos, causal: bool, window: int):
         raise ValueError("flash_attention: head_dim must have unit stride")
     if out.numel() == 0:
         return out
+    r = route(q.dtype, [(t.shape, t.stride()) for t in (q, k, v, out)],
+              [t.data_ptr() for t in (q, k, v, out)])
     lib = LIBRARY.load()
     with torch.cuda.device(q.device):
         code = lib.flash_attention_launch(
@@ -71,11 +101,19 @@ def _launch(q, k, v, out, q_pos, k_pos, causal: bool, window: int):
             b, hq, hkv, sq, sk, d, int(causal), int(window),
             float(1.0 / np.sqrt(d)),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-            DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+            DTYPE_CODES[q.dtype], ROUTES.index(r),
+            torch.cuda.current_stream(q.device).cuda_stream,
         )
     LIBRARY.check(code, "flash_attention launch")
     flash_attention.launches += 1
     return out
+
+
+@functools.lru_cache(maxsize=64)
+def _arange(n: int, device: torch.device):
+    """Positions 0..n-1 as int32 on ``device`` (kept: the op's mask on
+    indices passes them on every call)."""
+    return torch.arange(n, dtype=torch.int32, device=device)
 
 
 def _positions(pos, n, device, name):
@@ -95,9 +133,7 @@ def flash_attention(q, k, v, causal=False, block_q=128, block_k=128):
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    ar_q = torch.arange(sq, dtype=torch.int32, device=q.device)
-    ar_k = torch.arange(sk, dtype=torch.int32, device=q.device)
-    return _launch(q, k, v, out, ar_q, ar_k, causal, 0)
+    return _launch(q, k, v, out, _arange(sq, q.device), _arange(sk, q.device), causal, 0)
 
 
 #: kernel launches since the last reset (a plain count, set to 0 by callers).

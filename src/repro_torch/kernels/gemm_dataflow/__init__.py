@@ -1,2 +1,2 @@
-from .ops import DATAFLOWS, gemm, tile_sizes
+from .ops import DATAFLOWS, Plan, gemm, plan, tma_ok
 from .ref import gemm_ref

@@ -2,17 +2,21 @@
 
 ``gemm`` keeps the reference op's signature.  The three dataflows are
 three loop orders of one tiled product, each keeping its named operand
-tile resident in shared memory across the inner loop (see the kernel's
+resident in shared memory across the temporal loop (see the kernel's
 source note).  A CPU tensor goes to the plain version (:func:`gemm_ref`);
 a CUDA tensor launches the kernel or raises.
 
 ``block_v`` / ``block_g`` / ``block_f`` are the paper's tile sizes T_V,
-T_G, T_F.  The kernel uses them as its tiles, clipped by
-:func:`tile_sizes`: T_V and T_G to 128 (the CTA's register tile), T_F to
-what fits in shared memory beside them.
+T_G, T_F and stay at the signature.  How a CTA covers the work is the
+kernel's choice, made by :func:`plan` from the shapes, the dtype and the
+operands' alignment: bf16 whose rows TMA can take runs on the tensor cores
+(128 x 128 CTA tiles, 64-deep K steps); float32, and bf16 that TMA refuses,
+runs on CUDA cores (16 x 16 CTA tiles, lanes split over F).
 """
 import ctypes
+import functools
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -21,30 +25,76 @@ from .ref import gemm_ref
 
 DATAFLOWS = ("output_stationary", "weight_stationary", "input_stationary")
 
-#: the CTA's register tile: 256 threads x (8 x 8) outputs each.
-MAX_BLOCK_VG = 128
-#: shared memory one CTA may use on Hopper (227 KB).
-SMEM_BYTES = 232448
+#: SMs of an H100 SXM: the default for planning without a card.
+H100_SMS = 132
+#: tensor-core route: CTA tile (V, G), K step, resident tiles per CTA.
+TC_TILE, TC_BK, TC_MAX_RESIDENT = 128, 64, 9
+#: CUDA-core route: CTA tile (V and G), F rows of a resident slab, CTAs per SM.
+CC_TILE, CC_SLAB, CC_CTAS_PER_SM = 16, 1536, 2
+ROUTES = ("cuda_cores", "tensor_cores")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIBRARY = CudaLibrary(
     Path(__file__).with_name("gemm_dataflow.cu"),
-    {"gemm_dataflow_launch": [_P, _P, _P, _P] + [_I] * 8 + [_P]},
+    {"gemm_dataflow_launch": [_P, _P, _P, _P] + [_I] * 10 + [_P]},
 )
 
 
-def tile_sizes(v, f, g, block_v=128, block_g=128, block_f=128):
-    """The (T_V, T_G, T_F) the kernel runs: the requested tiles, clipped to
-    the matrix, to the register tile and to shared memory (f32 tiles of
-    x, T_V x (T_F + 1), and of w, T_F x T_G, with T_V and T_G rounded up
-    to 16)."""
-    bv = max(1, min(block_v, v, MAX_BLOCK_VG))
-    bg = max(1, min(block_g, g, MAX_BLOCK_VG))
-    bf = max(1, min(block_f, f))
-    rv, rg = cdiv(bv, 16) * 16, cdiv(bg, 16) * 16
-    while bf > 1 and (rv * (bf + 1) + bf * rg) * 4 > SMEM_BYTES:
-        bf -= 1
-    return bv, bg, bf
+class Plan(NamedTuple):
+    """How the kernel covers one product (all counts in CTA tiles)."""
+
+    route: str       # "tensor_cores" or "cuda_cores"
+    tile_v: int      # output rows of a CTA tile
+    tile_g: int      # output columns of a CTA tile
+    slab: int        # F rows resident (or, output-stationary, walked) at once
+    nslab: int       # slabs over F; > 1 sums partials in an f32 workspace
+    split: int       # CTAs along the temporal range (weight / input)
+    grid: tuple      # (grid_x, grid_y)
+
+
+def tma_ok(v: int, f: int, g: int, x_ptr: int = 0, w_ptr: int = 0) -> bool:
+    """Whether TMA takes bf16 x (V, F) and w (F, G), row-major: each row a
+    multiple of 16 bytes and each base 16-byte aligned."""
+    return f % 8 == 0 and g % 8 == 0 and x_ptr % 16 == 0 and w_ptr % 16 == 0
+
+
+def plan(v: int, f: int, g: int, dtype, dataflow: str, *, sms: int = H100_SMS,
+         x_ptr: int = 0, w_ptr: int = 0) -> Plan:
+    """The route, CTA tiles, slabs and grid for one ``gemm`` launch."""
+    if dataflow not in DATAFLOWS:
+        raise ValueError(f"dataflow must be one of {DATAFLOWS}")
+    df = DATAFLOWS.index(dataflow)
+    if dtype == torch.bfloat16 and tma_ok(v, f, g, x_ptr, w_ptr):
+        nv, ng, nk = cdiv(v, TC_TILE), cdiv(g, TC_TILE), cdiv(f, TC_BK)
+        if df == 0:  # persistent over the (V tile, G tile) list
+            return Plan("tensor_cores", TC_TILE, TC_TILE, f, 1, 1,
+                        (min(nv * ng, sms), 1))
+        slab_tiles = min(nk, TC_MAX_RESIDENT)
+        nslab = cdiv(nk, slab_tiles)
+        if df == 1:  # a G block resident, V tiles walked
+            split = max(1, min(nv, sms // ng))
+            grid = (split, ng)
+        else:        # a V block resident, G tiles walked
+            split = max(1, min(ng, sms // nv))
+            grid = (nv, split)
+        return Plan("tensor_cores", TC_TILE, TC_TILE, slab_tiles * TC_BK, nslab,
+                    split, grid)
+    nr, ng = cdiv(v, CC_TILE), cdiv(g, CC_TILE)
+    slab = min(f, CC_SLAB)
+    nslab = cdiv(f, slab)
+    slots = CC_CTAS_PER_SM * sms
+    if df == 0:  # one row group per CTA, the accumulator kept across slabs
+        return Plan("cuda_cores", CC_TILE, CC_TILE, slab, nslab, nr, (nr, ng))
+    if df == 1:
+        split = max(1, min(nr, cdiv(slots, ng)))
+        return Plan("cuda_cores", CC_TILE, CC_TILE, slab, nslab, split, (split, ng))
+    split = max(1, min(ng, cdiv(slots, nr)))
+    return Plan("cuda_cores", CC_TILE, CC_TILE, slab, nslab, split, (nr, split))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def gemm(x, w, dataflow="output_stationary", block_v=128, block_g=128,
@@ -57,6 +107,8 @@ def gemm(x, w, dataflow="output_stationary", block_v=128, block_g=128,
                         f"{x.dtype} and {w.dtype}")
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"gemm: shapes {tuple(x.shape)} @ {tuple(w.shape)}")
+    if min(block_v, block_g, block_f) < 1:
+        raise ValueError("gemm: block sizes must be positive")
     if x.device != w.device:
         raise ValueError("gemm: operands on several devices")
     if x.device.type == "cpu":
@@ -71,18 +123,20 @@ def gemm(x, w, dataflow="output_stationary", block_v=128, block_g=128,
         return out
     if f == 0:
         return out.zero_()
-    bv, bg, bf = tile_sizes(v, f, g, block_v, block_g, block_f)
-    # weight- and input-stationary sum F tiles into an f32 workspace owned
-    # by one CTA per element; a float32 output is its own workspace
+    p = plan(v, f, g, x.dtype, dataflow, sms=_sm_count(x.device), x_ptr=x.data_ptr(),
+             w_ptr=w.data_ptr())
+    # slab partials go to an f32 workspace owned by one CTA per element; a
+    # float32 output is its own workspace
     ws = out
-    if dataflow != "output_stationary" and x.dtype != torch.float32:
+    if p.nslab > 1 and x.dtype != torch.float32:
         ws = torch.empty((v, g), dtype=torch.float32, device=x.device)
     lib = LIBRARY.load()
     with torch.cuda.device(x.device):
         code = lib.gemm_dataflow_launch(
             x.data_ptr(), w.data_ptr(), out.data_ptr(), ws.data_ptr(),
-            v, f, g, bv, bg, bf, DATAFLOWS.index(dataflow),
-            DTYPE_CODES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
+            v, f, g, DATAFLOWS.index(dataflow), DTYPE_CODES[x.dtype],
+            ROUTES.index(p.route), p.slab, p.split, *p.grid,
+            torch.cuda.current_stream(x.device).cuda_stream,
         )
     LIBRARY.check(code, "gemm_dataflow launch")
     gemm.launches += 1
@@ -91,3 +145,4 @@ def gemm(x, w, dataflow="output_stationary", block_v=128, block_g=128,
 
 #: kernel launches since the last reset (a plain count, set to 0 by callers).
 gemm.launches = 0
+

@@ -1,0 +1,336 @@
+"""Per-kernel readings on one CUDA card for the tensor-core and CUDA-core
+kernels of ``flash_attention`` and ``gemm_dataflow``, beside their library
+calls; not a part of any model path.
+
+    PYTHONPATH=src python -m repro_torch.kernels.profile [--out FILE]
+
+For flash attention at smollm-135m prefill (bf16) and ``gemm`` at smollm's
+``w_gate`` (bf16) and cora's layer-0 combination (f32), each dataflow:
+
+- the kernel's device time from ``torch.profiler`` (CUPTI kernel records,
+  mean of ``--iters`` calls, L2 flushed before each), and the library
+  call's (SDPA, ``torch.matmul``) taken the same way;
+- achieved rates: the least bytes the function moves, and its operations,
+  over that time, each as a share of the card's rate;
+- resources: ptxas's registers and spills per instantiation, the CTA's
+  threads and shared memory, the CTAs an SM holds by each limit, the grid
+  and its waves;
+- ablations: copies of the kernel source with one stage taken out, built
+  and timed the same way (their outputs are wrong by design; only their
+  time is read).  The gap to the full kernel is what that stage costs on
+  the critical path;
+- the host cost of one ``cuTensorMapEncodeTiled`` call at the shapes the
+  wrappers encode (a small timer built beside the ablations).
+
+One JSON line per reading; ``--out`` also writes them all to a file.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import re
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .common import BUILD_DIR, CudaLibrary, build_libraries
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # dense, per s
+#: H100 per-SM limits: registers, shared memory (bytes), threads, CTAs
+SM_REGS, SM_SMEM, SM_THREADS, SM_CTAS = 65536, 233472, 2048, 32
+KERNELS = Path(__file__).resolve().parent
+PROFILE_DIR = BUILD_DIR.parent / "profile"
+
+# (file, variant) -> [(text in the source, replacement)]; each text must
+# occur exactly once
+ABLATIONS = {
+    ("flash_attention", "no_softmax"): [(
+        "  auto softmax = [&](int code) {\n    hopper::fence_operands(sc);\n",
+        "  auto softmax = [&](int code) {\n    hopper::fence_operands(sc);\n"
+        "    if (code >= 0) {  // ablation: P = S, no mask, max, exp or sum\n"
+        "      alpha[0] = alpha[1] = 1.f;\n"
+        "#pragma unroll\n"
+        "      for (int kk = 0; kk < 4; ++kk)\n"
+        "#pragma unroll\n"
+        "        for (int r = 0; r < 4; ++r)\n"
+        "          pa[kk][r] = hopper::pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);\n"
+        "      return;\n"
+        "    }\n")],
+    ("flash_attention", "no_pv"): [(
+        "        if constexpr (DP == 64) hopper::wgmma_rs_n64<1>(o, pa[kk], dv, 1);\n"
+        "        else hopper::wgmma_rs_n128<1>(o, pa[kk], dv, 1);\n",
+        "        (void)dv;  // ablation: no P V product\n")],
+    ("gemm_dataflow", "tc_no_mma"): [(
+        "  const uint32_t a0 = hopper::smem_u32(a) + wg * 64 * 128, b0 = hopper::smem_u32(b);\n",
+        "  if (wg >= 0) return;  // ablation: the ring is filled and drained, no wgmma\n"
+        "  const uint32_t a0 = hopper::smem_u32(a) + wg * 64 * 128, b0 = hopper::smem_u32(b);\n")],
+    ("gemm_dataflow", "cc_no_fill"): [(
+        "  for (int e = threadIdx.x; e < rows * kCcCols; e += kCcThreads) {\n",
+        "  for (int e = threadIdx.x; e < 0 * rows * kCcCols; e += kCcThreads) {  // ablation\n")],
+    ("gemm_dataflow", "cc_no_product"): [(
+        "      cc_partial<T, false, true>(p, nullptr, wsm, rg * kCcRows, c0, k0, rows, acc);\n",
+        "      if (rows < 0)  // ablation: the slab is filled, no product\n"
+        "        cc_partial<T, false, true>(p, nullptr, wsm, rg * kCcRows, c0, k0, rows, acc);\n")],
+    ("gemm_dataflow", "cc_no_x_fill"): [(
+        "    for (int c = threadIdx.x; c < cols; c += kCcThreads)\n",
+        "    for (int c = threadIdx.x; c < 0 * cols; c += kCcThreads)  // ablation\n")],
+    ("gemm_dataflow", "cc_x_fill_only"): [(
+        "      cc_partial<T, true, false>(p, xs, nullptr, r0, cb * kCcCols, k0, rows, acc);\n",
+        "      if (rows < 0)  // ablation: the x slab is filled, no product\n"
+        "        cc_partial<T, true, false>(p, xs, nullptr, r0, cb * kCcCols, k0, rows, acc);\n")],
+}
+ABLATIONS[("flash_attention", "feed_only")] = ABLATIONS[("flash_attention", "no_softmax")] + \
+    ABLATIONS[("flash_attention", "no_pv")] + [(
+        "    const uint32_t k_addr = hopper::smem_u32(ks + st * NP * kKVPanel);\n",
+        "    if (st >= 0) return;  // ablation: no q k^T product\n"
+        "    const uint32_t k_addr = hopper::smem_u32(ks + st * NP * kKVPanel);\n")]
+
+TENSOR_MAP_TIMER = r"""
+#include <chrono>
+
+#include "HOPPER"
+
+extern "C" {
+
+// Microseconds per cuTensorMapEncodeTiled call, the mean of `reps`: out[0]
+// for gemm's rank-2 maps (x (4096, 576) of smollm's w_gate), out[1] for
+// flash's rank-4 maps (q (4, 9, 1024, 64) of smollm prefill, contiguous).
+// Returns 0, or 1000 + the error of the rank-2 map, 2000 + the rank-4's.
+int tensor_map_us(double* out, const void* x, const void* q, int reps) {
+  CUtensorMap m;
+  const uint64_t d2[2] = {576, 4096}, s2[1] = {576 * 2};
+  const uint32_t b2[2] = {64, 128};
+  const uint64_t d4[4] = {64, 1024, 9, 4}, s4[3] = {64 * 2, 1024 * 64 * 2, 9 * 1024 * 64 * 2};
+  const uint32_t b4[4] = {64, 64, 1, 1};
+  cudaError_t err = hopper::make_map_bf16(&m, x, 2, d2, s2, b2);
+  if (err != cudaSuccess) return 1000 + (int)err;
+  err = hopper::make_map_bf16(&m, q, 4, d4, s4, b4);
+  if (err != cudaSuccess) return 2000 + (int)err;
+  auto t0 = std::chrono::steady_clock::now();
+  for (int i = 0; i < reps; ++i) hopper::make_map_bf16(&m, x, 2, d2, s2, b2);
+  auto t1 = std::chrono::steady_clock::now();
+  for (int i = 0; i < reps; ++i) hopper::make_map_bf16(&m, q, 4, d4, s4, b4);
+  auto t2 = std::chrono::steady_clock::now();
+  out[0] = std::chrono::duration<double, std::micro>(t1 - t0).count() / reps;
+  out[1] = std::chrono::duration<double, std::micro>(t2 - t1).count() / reps;
+  return 0;
+}
+
+const char* tensor_map_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}
+"""
+
+
+def emit(record: dict, sink: list) -> None:
+    sink.append(record)
+    print(json.dumps(record), flush=True)
+
+
+def variant_library(lib: CudaLibrary, name: str, patches) -> CudaLibrary:
+    """A copy of ``lib``'s source with ``patches`` applied, as a library of
+    its own under the build directory."""
+    text = lib.source.read_text().replace('#include "../hopper.cuh"',
+                                          f'#include "{KERNELS / "hopper.cuh"}"')
+    for old, new in patches:
+        if text.count(old) != 1:
+            raise RuntimeError(f"ablation {name}: patch site not found once: {old!r}")
+        text = text.replace(old, new)
+    path = PROFILE_DIR / name / lib.source.name
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(text)
+    return CudaLibrary(path, lib.functions)
+
+
+def ptxas_registers(libs) -> dict:
+    """Registers and spill-store bytes per kernel entry (demangled where
+    ``c++filt`` is present), from ptxas's ``-v`` lines."""
+    entries, current = {}, None
+    for lib in libs:
+        for line in lib.log_path().read_text().splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                current = m.group(1)
+                entries[current] = {}
+            elif current:
+                r = re.search(r"Used (\d+) registers", line)
+                if r:
+                    entries[current]["registers"] = int(r.group(1))
+                s = re.search(r"(\d+) bytes spill stores", line)
+                if s:
+                    entries[current]["spill_store_bytes"] = int(s.group(1))
+    names = list(entries)
+    tool = shutil.which("c++filt")
+    if tool and names:
+        out = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                             text=True, timeout=60).stdout.splitlines()
+        if len(out) == len(names):
+            names = out
+    return dict(zip(names, entries.values()))
+
+
+def resident_ctas(registers: int, threads: int, smem: int) -> dict:
+    """CTAs one SM holds by each limit (registers allocated per warp in
+    units of 256; 1 KB of shared memory reserved per CTA)."""
+    warps = -(-threads // 32)
+    regs_per_cta = warps * (-(-registers * 32 // 256) * 256)
+    by = {"registers": SM_REGS // regs_per_cta, "shared_memory": SM_SMEM // (smem + 1024),
+          "threads": SM_THREADS // threads, "ctas": SM_CTAS}
+    return {"ctas_per_sm": min(by.values()), "limited_by": min(by, key=by.get),
+            "ctas_per_sm_by_limit": by}
+
+
+def device_ms(fn, flush, iters: int) -> tuple[float, list[str]]:
+    """Mean device time of the kernels ``fn`` launches per call (the
+    flush's fill kernel left out), from the profiler's CUDA records."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    total, names = 0.0, []
+    for e in prof.key_averages():
+        if "fill" in e.key.lower() or "memset" in e.key.lower():
+            continue  # the L2 flush
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0:
+            total += us
+            names.append(e.key[:120])
+    return total / iters / 1e3, names
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--out", type=Path, default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile: needs a CUDA device")
+    import torch.nn.functional as F
+
+    from .flash_attention import flash_attention
+    from .flash_attention import ops as fops
+    from .gemm_dataflow import DATAFLOWS, gemm, plan
+    from .gemm_dataflow import ops as gops
+
+    records: list = []
+    variants = {key: variant_library({"flash_attention": fops.LIBRARY,
+                                      "gemm_dataflow": gops.LIBRARY}[key[0]], key[1], patches)
+                for key, patches in ABLATIONS.items()}
+    timer_cu = PROFILE_DIR / "tensor_map" / "tensor_map.cu"
+    timer_cu.parent.mkdir(parents=True, exist_ok=True)
+    timer_cu.write_text(TENSOR_MAP_TIMER.replace("HOPPER", str(KERNELS / "hopper.cuh")))
+    timer = CudaLibrary(timer_cu, {"tensor_map_us": [ctypes.POINTER(ctypes.c_double),
+                                                     ctypes.c_void_p, ctypes.c_void_p,
+                                                     ctypes.c_int]})
+    seconds = build_libraries([fops.LIBRARY, gops.LIBRARY, timer, *variants.values()])
+    regs = ptxas_registers([fops.LIBRARY, gops.LIBRARY])
+    emit({"reading": "build", "seconds": seconds, "ptxas": regs,
+          "device": torch.cuda.get_device_name(0)}, records)
+
+    dev = torch.device("cuda", 0)
+    out = (ctypes.c_double * 2)()
+    x_map = torch.empty((4096, 576), dtype=torch.bfloat16, device=dev)
+    q_map = torch.empty((4, 9, 1024, 64), dtype=torch.bfloat16, device=dev)
+    code = timer.load().tensor_map_us(out, x_map.data_ptr(), q_map.data_ptr(), 20000)
+    emit({"reading": "tensor_map_encode_us", "code": code, "rank2_gemm": out[0],
+          "rank4_flash": out[1],
+          "per_launch_us": {"gemm": 2 * out[0], "flash_attention": 3 * out[1]}}, records)
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+
+    def randn(shape, seed, dtype, scale=1.0):
+        a = np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+        return torch.as_tensor(a * np.float32(scale), device=dev).to(dtype)
+
+    def reading(case, fn, library, lib_obj, ablations, n_bytes, n_ops, dtype, launch):
+        ms, names = device_ms(fn, flush, args.iters)
+        lib_ms, lib_names = device_ms(library, flush, args.iters)
+        abl = {}
+        saved = lib_obj._lib
+        try:
+            for name in ablations:
+                lib_obj._lib = variants[(lib_obj.name, name)].load()
+                abl[name] = device_ms(fn, flush, args.iters)[0]
+        finally:
+            lib_obj._lib = saved
+        kernel = next((r for n, r in regs.items() if launch["entry"] in n), {})
+        occ = resident_ctas(kernel.get("registers", 255), launch["threads"], launch["smem"])
+        emit({"reading": "kernel", "case": case, "device_ms": ms, "kernels": names,
+              "library_ms": lib_ms, "library_kernels": lib_names,
+              "kernel_over_library": ms / lib_ms if lib_ms else None,
+              "achieved_GBps": n_bytes / ms / 1e6,
+              "bytes_share_of_hbm": n_bytes / ms / 1e-3 / HBM_BYTES_PER_S,
+              "achieved_TFLOPs": n_ops / ms / 1e9,
+              "ops_share_of_peak": n_ops / ms / 1e-3 / PEAK_OPS[dtype],
+              "entry": launch["entry"], "ptxas": kernel, "threads": launch["threads"],
+              "smem_bytes": launch["smem"], "ctas": launch["ctas"], **occ,
+              "waves": launch["ctas"] / (occ["ctas_per_sm"] * sms),
+              "ablation_ms": abl}, records)
+
+    # flash attention, smollm-135m prefill
+    b, hq, hkv, s, d = 4, 9, 3, 1024, 64
+    q = randn((b, hq, s, d), 7, torch.bfloat16)
+    k = randn((b, hkv, s, d), 8, torch.bfloat16)
+    v = randn((b, hkv, s, d), 9, torch.bfloat16)
+    pairs = s * (s + 1) // 2
+    reading("flash smollm_prefill_bf16",
+            lambda: flash_attention(q, k, v, causal=True),
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
+            fops.LIBRARY, ("no_softmax", "no_pv", "feed_only"),
+            (2 * b * hq * s * d + 2 * b * hkv * s * d) * 2, 4 * d * b * hq * pairs,
+            torch.bfloat16,
+            # as flash_attention.cu sizes the launch: 64-row q tiles, one
+            # consumer warpgroup and a producer warp, 3-stage K/V ring
+            {"entry": "flash_tc_kernel<64>", "threads": 160,
+             "smem": 1024 + 8192 + 2 * 3 * 8192 + 256, "ctas": b * hq * (s // 64)})
+
+    # gemm: smollm's w_gate (bf16, tensor cores) and cora layer 0 (f32)
+    for case, (vv, f, g), dtype in (("w_gate_bf16", (4096, 576, 1536), torch.bfloat16),
+                                    ("cora_l0_f32", (2708, 1433, 16), torch.float32)):
+        x = randn((vv, f), 1, dtype)
+        w = randn((f, g), 2, dtype, 1.0 / np.sqrt(f))
+        es = x.element_size()
+        for df in DATAFLOWS:
+            p = plan(vv, f, g, dtype, df, sms=sms, x_ptr=x.data_ptr(), w_ptr=w.data_ptr())
+            if p.route == "tensor_cores":
+                # as gemm_dataflow.cu sizes it: 2 consumer warpgroups and a
+                # producer warp; 4 ring stages and 9 resident 16 KB tiles
+                launch = {"entry": f"tc_kernel<{DATAFLOWS.index(df)}>", "threads": 288,
+                          "smem": 1024 + 13 * 16384 + 256}
+                ablations = ("tc_no_mma",)
+            else:
+                entry = ("cc_input_kernel<float>" if df == "input_stationary" else
+                         f"cc_w_resident_kernel<float, {str(df == 'output_stationary').lower()}>")
+                rows = p.tile_v if df == "input_stationary" else p.tile_g
+                launch = {"entry": entry, "threads": 128, "smem": p.slab * rows * 4}
+                ablations = (("cc_no_x_fill", "cc_x_fill_only") if df == "input_stationary"
+                             else ("cc_no_fill", "cc_no_product"))
+            launch["ctas"] = p.grid[0] * p.grid[1]
+            reading(f"gemm {case} {df}", lambda df=df: gemm(x, w, dataflow=df),
+                    lambda: torch.matmul(x, w), gops.LIBRARY, ablations,
+                    (vv * f + f * g + vv * g) * es, 2 * vv * f * g, dtype, launch)
+
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text("\n".join(json.dumps(r) for r in records) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

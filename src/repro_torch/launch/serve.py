@@ -30,7 +30,8 @@ def _sync(device: torch.device) -> None:
 
 
 def generate(cfg, params, prompts, new_tokens: int, greedy: bool = True,
-             generator=None, *, use_kernels: bool = True, timings=None):
+             generator=None, *, use_kernels: bool = True, timings=None,
+             decode_table=None):
     """prompts: (B, S) tokens (or (B, S, d) embeddings for stub frontends).
     Returns ((B, new_tokens) token ids, per-step latencies in seconds).
 
@@ -39,7 +40,10 @@ def generate(cfg, params, prompts, new_tokens: int, greedy: bool = True,
     cache, then one ``decode_step`` per new token.  ``generator`` draws the
     samples when not ``greedy``.  ``use_kernels=False`` runs the kernels'
     plain versions.  When ``timings`` is a dict, it receives the wall
-    seconds of ``prefill_s``, ``replay_s`` and ``decode_s``.
+    seconds of ``prefill_s``, ``replay_s`` and ``decode_s``.  The
+    embedded-input archs decode in embedding space through a fixed
+    (64, d_model) table: ``decode_table`` (an array, carried across as
+    weights are), or else one drawn from numpy ``default_rng(7)``.
     """
     b, s = prompts.shape[:2]
     dev = prompts.device
@@ -58,10 +62,14 @@ def generate(cfg, params, prompts, new_tokens: int, greedy: bool = True,
     table = None
     if cfg.embedded_inputs:
         # stub frontends decode in embedding space with a fixed table
-        rng = np.random.default_rng(7)
-        table = torch.as_tensor(
-            rng.normal(size=(64, cfg.d_model)).astype(np.float32) * 0.05,
-            device=dev).to(torch_dtype(cfg))
+        if decode_table is None:
+            rng = np.random.default_rng(7)
+            decode_table = rng.normal(size=(64, cfg.d_model)).astype(np.float32) * 0.05
+        table = torch.as_tensor(np.array(decode_table, np.float32),
+                                device=dev).to(torch_dtype(cfg))
+        if table.shape != (64, cfg.d_model):
+            raise ValueError(f"decode_table must be (64, {cfg.d_model}), got "
+                             f"{tuple(table.shape)}")
     out_tokens, lat = [], []
     for i in range(new_tokens):
         ts = time.perf_counter()

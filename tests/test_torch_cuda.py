@@ -196,3 +196,110 @@ def test_lm_forward_launches_flash_per_layer_and_matches_plain_twin(dev):
     assert flash_attention.launches == before + cfg.n_layers
     plain, _ = forward(cfg, params, toks, use_kernels=False)
     torch.testing.assert_close(logits, plain, rtol=1e-3, atol=1e-3)
+
+
+# bf16 edges of the tensor-core routes, each held against the plain version
+# at the bf16 tolerance of chip_smoke.py (2e-2)
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+# (V, F, G, route): ragged V/G/F tails; F = 704 is 11 K tiles, not a
+# multiple of the 4-stage ring; F = 1216 is 19 K tiles, past one 9-tile
+# resident slab (partials through the f32 workspace); rows TMA refuses
+# (G = 150: 300-byte rows; F = 60: 120-byte rows) take the CUDA cores
+GEMM_BF16_EDGES = [(300, 200, 152, "tensor_cores"), (1000, 704, 72, "tensor_cores"),
+                   (129, 1216, 264, "tensor_cores"), (300, 200, 150, "cuda_cores"),
+                   (64, 60, 64, "cuda_cores")]
+
+
+@pytest.mark.parametrize("dataflow", DATAFLOWS)
+@pytest.mark.parametrize("v,f,g,route", GEMM_BF16_EDGES)
+def test_gemm_bf16_edges_match_plain(dev, dataflow, v, f, g, route):
+    from repro_torch.kernels.gemm_dataflow import plan
+
+    x = randn((v, f), v, dev, torch.bfloat16)
+    w = randn((f, g), g, dev, torch.bfloat16) / np.sqrt(f)
+    p = plan(v, f, g, x.dtype, dataflow, x_ptr=x.data_ptr(), w_ptr=w.data_ptr())
+    assert p.route == route
+    out = gemm(x, w, dataflow=dataflow)
+    torch.testing.assert_close(out, gemm_ref(x, w), **BF16_TOL)
+    assert torch.equal(out, gemm(x, w, dataflow=dataflow))
+
+
+def test_gemm_bf16_misaligned_base_takes_cuda_cores(dev):
+    """A contiguous operand whose base is not 16-byte aligned cannot be a
+    TMA source: the CUDA-core route runs it, with the right numbers."""
+    from repro_torch.kernels.gemm_dataflow import plan
+
+    x = randn((256 * 128 + 1,), 1, dev, torch.bfloat16)[1:].view(256, 128)
+    w = randn((128, 64), 2, dev, torch.bfloat16) / 12
+    assert x.data_ptr() % 16
+    assert plan(256, 128, 64, x.dtype, "output_stationary",
+                x_ptr=x.data_ptr(), w_ptr=w.data_ptr()).route == "cuda_cores"
+    torch.testing.assert_close(gemm(x, w), gemm_ref(x, w), **BF16_TOL)
+
+
+# (B, Hq, Hkv, Sq, Sk, D): GQA 7, D 8 and 128, Sq != Sk both ways
+# bf16 flash against the f32 plain version on the same bf16 inputs: the
+# largest relative L2 error of one output row (chip_smoke.py's
+# FLASH_ROW_REL_L2).  The output's and P's bf16 roundings give ~2e-3-6e-3;
+# a key block dropped or counted twice moves a row by far more.
+FLASH_ROW_REL_L2 = 1e-2
+
+
+def assert_rows_close_to_f32(out, ref32):
+    row = (out.float() - ref32).norm(dim=-1) / ref32.norm(dim=-1)
+    assert float(row.max()) <= FLASH_ROW_REL_L2, float(row.max())
+
+
+FLASH_BF16_EDGES = [(1, 14, 2, 130, 130, 128), (2, 7, 1, 200, 200, 8),
+                    (1, 4, 2, 70, 300, 64), (1, 6, 3, 300, 45, 40)]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d", FLASH_BF16_EDGES)
+def test_flash_bf16_edges_match_plain(dev, b, hq, hkv, sq, sk, d, causal):
+    q = randn((b, hq, sq, d), 1, dev, torch.bfloat16)
+    k, v = randn((b, hkv, sk, d), 2, dev, torch.bfloat16), randn((b, hkv, sk, d), 3, dev,
+                                                                   torch.bfloat16)
+    out = flash_attention(q, k, v, causal=causal)
+    plain = attend_chunked(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                           torch.arange(sq, device=dev), torch.arange(sk, device=dev),
+                           causal=causal)
+    torch.testing.assert_close(out, plain.transpose(1, 2), **BF16_TOL)
+    plain32 = attend_chunked(q.float().transpose(1, 2), k.float().transpose(1, 2),
+                             v.float().transpose(1, 2), torch.arange(sq, device=dev),
+                             torch.arange(sk, device=dev), causal=causal)
+    assert_rows_close_to_f32(out, plain32.transpose(1, 2))
+
+
+@pytest.mark.parametrize("window", [0, 7, 100])
+def test_attend_bf16_offset_positions_and_window(dev, window):
+    """The model route in bf16: a query chunk at the end of a longer key
+    range (Sq != Sk, positions offset), GQA 3, with and without a window."""
+    b, sq, sk, hq, hkv, d = 2, 70, 200, 6, 2, 64
+    q = randn((b, sq, hq, d), 4, dev, torch.bfloat16)
+    k = randn((b, sk, hkv, d), 5, dev, torch.bfloat16)
+    v = randn((b, sk, hkv, d), 6, dev, torch.bfloat16)
+    q_pos = torch.arange(sk - sq, sk, device=dev, dtype=torch.int32) + 5
+    k_pos = torch.arange(sk, device=dev, dtype=torch.int32) + 5
+    out = attend(q, k, v, q_pos, k_pos, window, 64)
+    torch.testing.assert_close(out, attend_chunked(q, k, v, q_pos, k_pos, window, 64),
+                               **BF16_TOL)
+    assert_rows_close_to_f32(out, attend_chunked(q.float(), k.float(), v.float(), q_pos,
+                                                 k_pos, window, 64))
+
+
+def test_flash_bf16_strides_tma_refuses_take_cuda_cores(dev):
+    """k and v views with 136-byte rows (D 64 of a 68-wide buffer): TMA
+    cannot address them, the CUDA-core route runs them."""
+    from repro_torch.kernels.flash_attention import route
+
+    q = randn((1, 4, 100, 64), 1, dev, torch.bfloat16)
+    k = randn((1, 2, 100, 68), 2, dev, torch.bfloat16)[..., :64]
+    v = randn((1, 2, 100, 68), 3, dev, torch.bfloat16)[..., :64]
+    views = [(t.shape, t.stride()) for t in (q, k, v, q)]
+    assert route(torch.bfloat16, views, [q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                         q.data_ptr()]) == "cuda_cores"
+    out = flash_attention(q, k, v, causal=True)
+    plain = attend_chunked(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                           torch.arange(100, device=dev), torch.arange(100, device=dev))
+    torch.testing.assert_close(out, plain.transpose(1, 2), **BF16_TOL)

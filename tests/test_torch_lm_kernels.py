@@ -22,7 +22,10 @@ from repro_torch.kernels.flash_attention import (
     attention_ref,
     flash_attention,
 )
-from repro_torch.kernels.gemm_dataflow import DATAFLOWS, gemm, gemm_ref, tile_sizes
+from repro_torch.kernels import profile as kernel_profile
+from repro_torch.kernels.common import CudaLibrary
+from repro_torch.kernels.flash_attention import route as flash_route
+from repro_torch.kernels.gemm_dataflow import DATAFLOWS, gemm, gemm_ref, plan, tma_ok
 
 
 def rand(shape, seed):
@@ -147,8 +150,114 @@ def test_gemm_rejects_unknown_dataflow_and_bad_operands():
 
 
 def test_gemm_tile_sizes_clip_to_matrix_registers_and_smem():
-    assert tile_sizes(2708, 1433, 16) == (128, 16, 128)
-    assert tile_sizes(33, 17, 5, 32, 32, 32) == (32, 5, 17)
-    bv, bg, bf = tile_sizes(4096, 4096, 4096, 512, 512, 4096)
-    assert (bv, bg) == (128, 128)
-    assert (128 * (bf + 1) + bf * 128) * 4 <= 232448 < (128 * (bf + 2) + (bf + 1) * 128) * 4
+    """The CTA tiles ``plan`` gives: 16 x 16 on the CUDA cores with the
+    whole F resident up to 1536 rows (2 x 96 KB per SM), 128 x 128 on the
+    tensor cores with at most 9 resident 64-deep tiles (144 KB); the
+    paper's block sizes do not change them."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    cora = plan(2708, 1433, 16, f32, "output_stationary")
+    assert (cora.route, cora.tile_v, cora.tile_g, cora.slab, cora.nslab) == \
+        ("cuda_cores", 16, 16, 1433, 1)
+    assert cora.grid == (170, 1) and cora.grid[0] >= 132  # fills the card
+    for df in DATAFLOWS:
+        p = plan(4096, 576, 1536, bf16, df)
+        assert (p.route, p.tile_v, p.tile_g, p.nslab) == ("tensor_cores", 128, 128, 1)
+        assert p.grid[0] * p.grid[1] <= 132  # one wave, one CTA per SM
+    wide = plan(4096, 4096, 4096, bf16, "weight_stationary")
+    assert (wide.slab, wide.nslab) == (9 * 64, 8)  # 144 KB slabs, 8 of them
+    assert plan(4096, 4096, 4096, f32, "input_stationary")[3:5] == (1536, 3)
+    assert plan(33, 17, 5, bf16, "output_stationary").route == "cuda_cores"
+
+
+@pytest.mark.parametrize("dataflow", DATAFLOWS)
+@pytest.mark.parametrize("v,f,g", [(2708, 1433, 16), (4096, 576, 1536), (33, 17, 5),
+                                   (1000, 1216, 264), (5000, 64, 8)])
+def test_gemm_plan_covers_every_tile_once(dataflow, v, f, g):
+    """Each CTA's walk (blockIdx + k * split along the temporal axis) and
+    the grid together cover every output tile exactly once, within CUDA's
+    grid limits."""
+    for dtype in (torch.float32, torch.bfloat16):
+        p = plan(v, f, g, dtype, dataflow)
+        nv, ng = -(-v // p.tile_v), -(-g // p.tile_g)
+        gx, gy = p.grid
+        assert 1 <= gy <= 65535 and gx >= 1
+        if dataflow == "output_stationary" and p.route == "tensor_cores":
+            tiles = [t for b in range(gx) for t in range(b, nv * ng, gx)]
+        elif dataflow == "output_stationary":
+            # the weight-stationary walk with one row group per CTA
+            assert p.split == nv == gx
+            tiles = [i * ng + j for b in range(gx) for j in range(gy)
+                     for i in range(b, nv, p.split)]
+        elif dataflow == "weight_stationary":
+            tiles = [i * ng + j for b in range(gx) for j in range(gy)
+                     for i in range(b, nv, p.split)]
+        else:
+            tiles = [i * ng + j for i in range(gx) for b in range(gy)
+                     for j in range(b, ng, p.split)]
+        assert sorted(tiles) == list(range(nv * ng))
+        assert p.nslab == -(-f // p.slab)
+
+
+def test_gemm_tma_eligibility():
+    """TMA takes a bf16 operand only when each row is a multiple of 16
+    bytes and its base is 16-byte aligned; anything else runs on CUDA
+    cores (never on wrong numbers)."""
+    assert tma_ok(4096, 576, 1536)
+    assert not tma_ok(300, 200, 150)   # w rows of 300 bytes
+    assert not tma_ok(2708, 1433, 16)  # x rows of 2866 bytes
+    assert not tma_ok(64, 64, 64, x_ptr=8)
+    assert plan(64, 64, 64, torch.bfloat16, "output_stationary", w_ptr=2).route == "cuda_cores"
+    assert plan(64, 64, 64, torch.float32, "output_stationary").route == "cuda_cores"
+
+
+def _views(*ts):
+    return [(t.shape, t.stride()) for t in ts]
+
+
+def test_flash_route_needs_bf16_and_tma_strides():
+    b, s, hq, hkv, d = 2, 40, 6, 2, 64
+    q = torch.zeros(b, s, hq, d, dtype=torch.bfloat16).transpose(1, 2)  # model layout
+    k = torch.zeros(b, s, hkv, d, dtype=torch.bfloat16).transpose(1, 2)
+    ptrs = [0, 0, 0, 0]
+    assert flash_route(torch.bfloat16, _views(q, k, k, q), ptrs) == "tensor_cores"
+    assert flash_route(torch.float32, _views(q, k, k, q), ptrs) == "cuda_cores"
+    assert flash_route(torch.bfloat16, _views(q, k, k, q), [0, 16, 8, 0]) == "cuda_cores"
+    odd = torch.zeros(b, hkv, s, d + 4, dtype=torch.bfloat16)[..., :d]  # 136-byte rows
+    assert flash_route(torch.bfloat16, _views(q, odd, k, q), ptrs) == "cuda_cores"
+    assert flash_route(torch.bfloat16, _views(q, k, k, q), [0, 0, 0, 2]) == "cuda_cores"
+    one = torch.zeros(1, 1, 1, 8, dtype=torch.bfloat16)  # extent-1 dims never step
+    assert flash_route(torch.bfloat16, _views(one, one, one, one), ptrs) == "tensor_cores"
+
+
+def test_kernel_build_key_covers_included_headers(tmp_path):
+    """An edit to a header the .cu includes changes the library's key, so
+    a stale build is never loaded."""
+    (tmp_path / "k").mkdir()
+    cu, hdr = tmp_path / "k" / "lib.cu", tmp_path / "common.cuh"
+    hdr.write_text("// v1\n")
+    cu.write_text('#include <cuda_runtime.h>\n#include "../common.cuh"\nint x;\n')
+    lib = CudaLibrary(cu, {})
+    assert lib.sources() == [cu.resolve(), hdr.resolve()]
+    before = lib.so_path()
+    hdr.write_text("// v2\n")
+    assert lib.so_path() != before
+
+
+@pytest.mark.parametrize("file,variant", sorted(kernel_profile.ABLATIONS))
+def test_profile_ablation_sites_occur_once_in_the_kernel_source(file, variant):
+    """Each ablation of ``python -m repro_torch.kernels.profile`` patches a
+    text that occurs exactly once in the kernel it copies, so an edit to
+    the kernel cannot leave it timing an unpatched copy."""
+    text = (kernel_profile.KERNELS / file / f"{file}.cu").read_text()
+    for old, _ in kernel_profile.ABLATIONS[(file, variant)]:
+        assert text.count(old) == 1, old
+
+
+def test_profile_resident_ctas_by_each_limit():
+    """CTAs an SM holds: registers by whole warps in units of 256, shared
+    memory with 1 KB reserved per CTA."""
+    flash = kernel_profile.resident_ctas(110, 160, 58624)
+    assert (flash["ctas_per_sm"], flash["ctas_per_sm_by_limit"]["registers"]) == (3, 3)
+    cora = kernel_profile.resident_ctas(125, 128, 1433 * 16 * 4)
+    assert (cora["ctas_per_sm"], cora["limited_by"]) == (2, "shared_memory")
+    assert kernel_profile.resident_ctas(32, 1024, 0)["ctas_per_sm"] == 2  # threads, registers

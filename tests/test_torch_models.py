@@ -258,6 +258,23 @@ def test_generate_tokens_identical_to_reference():
     np.testing.assert_array_equal(toks.numpy(), np.asarray(ref_toks))
 
 
+@pytest.mark.parametrize("arch", ["musicgen-large", "llava-next-34b"])
+def test_generate_embedded_arch_tokens_identical_to_reference(arch):
+    """The embedded-input archs decode through a 64-row table; given the
+    reference's table (drawn from jax.random.PRNGKey(7)), greedy tokens are
+    the reference's."""
+    cfg = get_config(arch).reduced()
+    assert cfg.embedded_inputs
+    rp = ref_params(cfg, seed=0)
+    prompts = ref_make_inputs(cfg, 2, 8, seed=0)
+    ref_toks, _ = ref_serve.generate(cfg, rp, prompts, 5)
+    table = np.asarray(jax.random.normal(jax.random.PRNGKey(7), (64, cfg.d_model)) * 0.05)
+    toks, _ = serve.generate(cfg, params_from_numpy(to_np(rp), "cpu"),
+                             make_inputs(cfg, 2, 8, seed=0, device="cpu"), 5,
+                             decode_table=table)
+    np.testing.assert_array_equal(toks.numpy(), np.asarray(ref_toks))
+
+
 def test_generate_sampling_is_seeded():
     cfg = get_config("smollm-135m").reduced()
     params = tf.init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
