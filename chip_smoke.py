@@ -15,7 +15,12 @@ Phases, one JSON line each (no phase's error is caught):
                 at the main paths' shapes, with its time, the plain
                 version's, one PyTorch library call's where one computes
                 the same function, and the bound: the GNN kernels at cora
-                layer 0; flash attention at the reference's test shapes,
+                layer 0, at cora re-padded to D = 512 (the time ratio:
+                only real slots are work), and at the layer-0 shapes of the
+                serving phase's reddit-bin (512, 256) bucket (beside
+                ``torch.sparse.mm``; the fused kernel also beside the
+                two-call pair ``torch.sparse.mm(csr, x) @ w``,
+                ``library_pair_ms``); flash attention at the reference's test shapes,
                 smollm-135m prefill (f32, bf16), a ragged S and D = 128;
                 ``gemm`` under each dataflow at the reference's test shapes,
                 cora's layer-0 combination, smollm's ``w_gate``, a bf16
@@ -157,7 +162,7 @@ def timed(kernel, library, plain, flush) -> dict:
                             graphed(library) if library is not None else None, flush)
     return {"ms": ms, "library_ms": lib_ms, "graph_ms": g_ms, "library_graph_ms": g_lib,
             "kernel_over_library": g_ms / g_lib if g_lib else None,
-            "plain_ms": time_ms(plain, flush, iters=5)}
+            "plain_ms": time_ms(plain, flush, iters=5) if plain is not None else None}
 
 
 def bound_ms(n_bytes: float, n_ops: float, dtype) -> tuple[float, str]:
@@ -169,6 +174,13 @@ def bound_ms(n_bytes: float, n_ops: float, dtype) -> tuple[float, str]:
 def ell_of(g, dev, block_rows=1):
     idx, wts, _ = g.to_ell(block_rows)
     return torch.as_tensor(idx, device=dev), torch.as_tensor(wts, device=dev)
+
+
+def serving_graphs():
+    """The serving phase's 32 reddit-bin graphs (seed 0)."""
+    from repro_torch.graphs import TABLE4, sample_graphs
+
+    return sample_graphs(TABLE4["reddit-bin"], 32, seed=0)
 
 
 def randn(shape, seed, dev, scale=1.0):
@@ -258,7 +270,7 @@ def phase_build(libs) -> None:
 def phase_kernels(dev, flush) -> dict:
     """Each kernel against its plain version; returns the per-kernel
     numbers at cora layer 0 for the final ``kernels`` line."""
-    from repro_torch.graphs import from_edges, load_dataset
+    from repro_torch.graphs import from_edges, load_dataset, to_torch_csr
     from repro_torch.kernels.fused_agg_cmb import fused_agg_cmb, fused_ref
     from repro_torch.kernels.spmm import spmm, spmm_ref, spmm_streamed
 
@@ -269,11 +281,7 @@ def phase_kernels(dev, flush) -> dict:
     x = randn((v, f), 1, dev)
     w = randn((f, g), 2, dev, scale=1.0 / np.sqrt(f))
     nnz = int(torch.count_nonzero(wts))
-    csr = torch.sparse_csr_tensor(
-        torch.as_tensor(cora.row_ptr.astype(np.int64), device=dev),
-        torch.as_tensor(cora.col_idx.astype(np.int64), device=dev),
-        torch.as_tensor(cora.values, device=dev), size=(v, v),
-    )
+    csr = to_torch_csr(cora, dev)
 
     # a ragged case: V_pad not a multiple of any CTA's row count
     rng = np.random.default_rng(5)
@@ -329,30 +337,131 @@ def phase_kernels(dev, flush) -> dict:
           "spmm_streamed(block_rows=1024) == spmm, cora layer 0",
           "bit_identical": True, "ok": True})
 
-    es = x.element_size()
-    sp_bytes = nnz * 8 + v * f * es + idx.shape[0] * f * es
-    sp_bound, sp_by = bound_ms(sp_bytes, 2 * nnz * f, x.dtype)
-    fu_bytes = nnz * 8 + v * f * es + f * g * es + idx.shape[0] * g * es
-    fu_bound, fu_by = bound_ms(fu_bytes, 2 * nnz * f + 2 * v * f * g, x.dtype)
-    numbers = {
-        "spmm": {
-            **timed(lambda: spmm(idx, wts, x), lambda: torch.sparse.mm(csr, x),
-                    lambda: spmm_ref(idx, wts, x), flush),
-            "bound_ms": sp_bound, "bound_by": sp_by, "bytes": sp_bytes,
-        },
-        "fused_agg_cmb": {
-            # no single PyTorch call computes (A @ X) @ W
-            **timed(lambda: fused_agg_cmb(idx, wts, x, w, band_size=128, block_f=512),
-                    None, lambda: fused_ref(idx, wts, x, w), flush),
-            "bound_ms": fu_bound, "bound_by": fu_by, "bytes": fu_bytes,
-        },
-    }
+    numbers = gnn_timings(idx, wts, x, w, csr, flush)
     for name, nums in numbers.items():
         nums["max_abs_err"] = errs[name]
         emit({"phase": "kernels", "kernel": name, "case": "cora_l0_timing",
               "nnz": nnz, "v_pad": idx.shape[0], "d": idx.shape[1],
               **nums})
+
+    # padding invariance: cora's graph re-padded to D = 512; only the real
+    # slots are work, so the time should not follow D
+    idx512, wts512 = (torch.as_tensor(a, device=dev)
+                      for a in cora.to_ell(128, pad_to=512)[:2])
+    torch.testing.assert_close(spmm(idx512, wts512, x), spmm(idx, wts, x),
+                               **TOL_F32["spmm"])
+    torch.testing.assert_close(fused_agg_cmb(idx512, wts512, x, w),
+                               fused_agg_cmb(idx, wts, x, w), **TOL_F32["fused_agg_cmb"])
+    wide = gnn_timings(idx512, wts512, x, w, csr, flush, plain=False)
+    emit({"phase": "kernels", "case": "padding_invariance cora_l0 D 512 against D 72",
+          **{name: {"graph_ms_d72": numbers[name]["graph_ms"],
+                    "graph_ms_d512": wide[name]["graph_ms"],
+                    "ms_d72": numbers[name]["ms"], "ms_d512": wide[name]["ms"],
+                    "ratio": wide[name]["graph_ms"] / numbers[name]["graph_ms"]}
+             for name in numbers}, "ok": True})
+    serving = phase_serving_shape(dev, flush)
+    keys = ("ms", "graph_ms", "library_ms", "library_graph_ms", "library_pair_ms",
+            "library_pair_graph_ms", "bound_ms", "bound_by", "over_bound", "x_rows_read",
+            "w_l2_bytes", "x_bytes")
+    for name, nums in numbers.items():
+        nums["cases"] = {
+            "reddit-bin (512, 256) layer 0, f32": {
+                k: serving[name][k] for k in keys if k in serving[name]},
+            "cora layer 0 re-padded to D 512, f32": {
+                k: wide[name][k] for k in keys if k in wide[name]},
+        }
     return numbers
+
+
+def phase_serving_shape(dev, flush) -> dict:
+    """Both GNN kernels at the layer-0 shapes of the serving phase's first
+    batch of the reddit-bin (512, 256) bucket, built by the same
+    ``micro_batches`` as that phase (``bucket_ell``); each held against its plain version in
+    512-row chunks (the plain version's (rows, D, F) gather of the whole
+    batch would not fit in device memory, so it is not timed)."""
+    from repro_torch.graphs import TABLE4, bucket_ell, to_torch_csr
+    from repro_torch.kernels.fused_agg_cmb import fused_agg_cmb, fused_ref
+    from repro_torch.kernels.spmm import spmm, spmm_ref
+
+    batch, idx, wts = bucket_ell(serving_graphs(), (512, 256))
+    graph, f = batch.graph, TABLE4["reddit-bin"].n_features
+    idx, wts = torch.as_tensor(idx, device=dev), torch.as_tensor(wts, device=dev)
+    g = 16
+    x = randn((graph.n_nodes, f), 30, dev)
+    w = randn((f, g), 31, dev, scale=1.0 / np.sqrt(f))
+    rows, errs = 512, {}
+    for name, kern, plain, tol in (
+            ("spmm", lambda: spmm(idx, wts, x),
+             lambda r: spmm_ref(idx[r:r + rows], wts[r:r + rows], x), TOL_F32["spmm"]),
+            ("fused_agg_cmb", lambda: fused_agg_cmb(idx, wts, x, w),
+             lambda r: fused_ref(idx[r:r + rows], wts[r:r + rows], x, w),
+             TOL_F32["fused_agg_cmb"])):
+        out = kern()
+        ref = torch.cat([plain(r) for r in range(0, idx.shape[0], rows)])
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()), f"{name} reddit-bin: non-finite output")
+        torch.testing.assert_close(out, ref, **tol)
+        errs[name] = float((out - ref).abs().max())
+        del ref
+    nums = gnn_timings(idx, wts, x, w, to_torch_csr(graph, dev), flush, plain=False)
+    for name, rec in nums.items():
+        emit({"phase": "kernels", "kernel": name,
+              "case": "reddit-bin bucket [512, 256] layer 0",
+              "shape": [*idx.shape, f, g], "nnz": int(torch.count_nonzero(wts)),
+              "max_abs_err": errs[name], "tol": TOL_F32[name],
+              "plain_ms_note": "not timed: the plain version runs in 512-row chunks",
+              **rec, "ok": True})
+    return nums
+
+
+def gnn_timings(idx, wts, x, w, csr, flush, plain=True) -> dict:
+    """Both GNN kernels' times and bounds on one ELL: ``spmm`` beside
+    ``torch.sparse.mm`` on the same graph's CSR; the fused kernel beside no
+    one-call library (none computes (A @ X) @ W) and beside the two-call
+    pair ``torch.sparse.mm(csr, x) @ w`` (``library_pair_ms``: the unfused
+    library route, not a one-call yardstick).  ``plain=False`` leaves the
+    plain versions untimed (``plain_ms`` None).
+
+    The bounds count the work this ELL needs: its non-zero (src, weight)
+    pairs, the x rows they reference (a serving batch's pad rows hold only
+    a weight-0 self-loop, so their x rows are never read), out, w, and the
+    combination of the rows that have a non-zero weight.  The fused
+    record also gives the w bytes the kernel reads from L2 (every row block
+    with a real slot reads all of w) beside x's."""
+    from repro_torch.kernels.fused_agg_cmb import fused_agg_cmb, fused_ref
+    from repro_torch.kernels.fused_agg_cmb.ops import plan as fused_plan
+    from repro_torch.kernels.spmm import spmm, spmm_ref
+
+    real = wts != 0
+    nnz = int(real.sum())
+    x_rows = int(torch.unique(idx[real]).numel())
+    live = real.any(dim=1)
+    v_pad, f, g = idx.shape[0], x.shape[1], w.shape[1]
+    es = x.element_size()
+    x_bytes = x_rows * f * es
+    sp_bytes = nnz * 8 + x_bytes + v_pad * f * es
+    sp_bound, sp_by = bound_ms(sp_bytes, 2 * nnz * f, x.dtype)
+    fu_bytes = nnz * 8 + x_bytes + f * g * es + v_pad * g * es
+    fu_bound, fu_by = bound_ms(fu_bytes, 2 * nnz * f + 2 * int(live.sum()) * f * g, x.dtype)
+    fp = fused_plan(idx, x, w)
+    blocks = int(torch.unique(live.nonzero()[:, 0] // fp["rows"]).numel())
+    sp = timed(lambda: spmm(idx, wts, x), lambda: torch.sparse.mm(csr, x),
+               (lambda: spmm_ref(idx, wts, x)) if plain else None, flush)
+    fu = timed(lambda: fused_agg_cmb(idx, wts, x, w, band_size=128, block_f=512),
+               None, (lambda: fused_ref(idx, wts, x, w)) if plain else None, flush)
+    pair = time_pair(graphed(lambda: torch.sparse.mm(csr, x) @ w), None, flush)[0]
+    pair_ms = time_ms(lambda: torch.sparse.mm(csr, x) @ w, flush)
+    return {
+        "spmm": {**sp, "bound_ms": sp_bound, "bound_by": sp_by, "bytes": sp_bytes,
+                 "x_rows_read": x_rows, "over_bound": sp["graph_ms"] / sp_bound},
+        "fused_agg_cmb": {**fu, "bound_ms": fu_bound, "bound_by": fu_by,
+                          "bytes": fu_bytes, "x_rows_read": x_rows,
+                          "over_bound": fu["graph_ms"] / fu_bound,
+                          "plan": fp, "w_l2_bytes": blocks * f * g * es,
+                          "x_bytes": x_bytes,
+                          "library_pair_ms": pair_ms, "library_pair_graph_ms": pair,
+                          "library_pair": "torch.sparse.mm(csr, x) @ w, two calls"},
+    }
 
 
 def flash_bound(b, hq, hkv, sq, sk, d, dtype, causal) -> tuple[float, str]:
@@ -544,14 +653,11 @@ def phase_main(dev, counters) -> dict:
 def phase_serving(dev, counters) -> dict:
     import repro_torch
     from repro_torch.gnn import GNNConfig
-    from repro_torch.graphs import TABLE4, BucketPolicy, assemble, bucketize
-    from repro_torch.graphs.datasets import make_graph
+    from repro_torch.graphs import TABLE4, BucketPolicy, micro_batches
     from repro_torch.kernels.fused_agg_cmb import fused_agg_cmb, fused_ref
 
-    table = TABLE4["reddit-bin"]
-    f_in = table.n_features
-    rng = np.random.default_rng(0)
-    graphs = [make_graph(table, rng) for _ in range(32)]
+    f_in = TABLE4["reddit-bin"].n_features
+    graphs = serving_graphs()
     feats = [np.random.default_rng(1000 + i).normal(
         size=(g.n_nodes, f_in)).astype(np.float32)
         for i, g in enumerate(graphs)]
@@ -562,25 +668,22 @@ def phase_serving(dev, counters) -> dict:
     served, buckets, outputs, batches = 0, [], {}, []
     reset_counts(counters)
     t0 = time.perf_counter()
-    for key, ids in bucketize(graphs, policy).items():
-        for s in range(0, len(ids), policy.max_graphs):
-            chunk = ids[s:s + policy.max_graphs]
-            batch = assemble([graphs[i] for i in chunk], policy)
-            prog = repro_torch.compile(cfg, graph=batch.graph, device=dev)
-            if params is None:
-                params = prog.init(torch.Generator().manual_seed(1))
-            bound = prog.bind(batch.graph, pad_degree=batch.d_bucket)
-            xb = torch.as_tensor(
-                batch.batch_features([feats[i] for i in chunk]), device=dev)
-            seg = torch.as_tensor(batch.segment_ids, device=dev)
-            out = bound.run(params, xb, segment_ids=seg,
-                            num_segments=batch.slots, readout="mean")
-            for i, row in zip(chunk, out[: batch.n_graphs]):
-                outputs[i] = (row, bound)
-            served += batch.n_graphs
-            batches.append((key, bound, xb, seg, batch.slots, out))
-            buckets.append({"bucket": list(key), "graphs": batch.n_graphs,
-                            "slots": batch.slots, "layers": tiers(prog)})
+    for key, chunk, batch in micro_batches(graphs, policy):
+        prog = repro_torch.compile(cfg, graph=batch.graph, device=dev)
+        if params is None:
+            params = prog.init(torch.Generator().manual_seed(1))
+        bound = prog.bind(batch.graph, pad_degree=batch.d_bucket)
+        xb = torch.as_tensor(
+            batch.batch_features([feats[i] for i in chunk]), device=dev)
+        seg = torch.as_tensor(batch.segment_ids, device=dev)
+        out = bound.run(params, xb, segment_ids=seg,
+                        num_segments=batch.slots, readout="mean")
+        for i, row in zip(chunk, out[: batch.n_graphs]):
+            outputs[i] = (row, bound)
+        served += batch.n_graphs
+        batches.append((key, bound, xb, seg, batch.slots, out))
+        buckets.append({"bucket": list(key), "graphs": batch.n_graphs,
+                        "slots": batch.slots, "layers": tiers(prog)})
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = {k: c.launches for k, c in counters.items()}

@@ -244,6 +244,31 @@ def assemble(
     )
 
 
+def micro_batches(
+    graphs: Sequence[CSRGraph], policy: BucketPolicy = BucketPolicy()
+):
+    """The micro-batches a server runs for ``graphs``, in order: each
+    bucket's members (in :func:`bucketize` order) in chunks of
+    ``policy.max_graphs``, assembled.  Yields (bucket key, member ids,
+    batch)."""
+    for key, ids in bucketize(graphs, policy).items():
+        for s in range(0, len(ids), policy.max_graphs):
+            chunk = ids[s : s + policy.max_graphs]
+            yield key, chunk, assemble([graphs[i] for i in chunk], policy)
+
+
+def bucket_ell(
+    graphs: Sequence[CSRGraph],
+    key: tuple[int, int],
+    policy: BucketPolicy = BucketPolicy(),
+):
+    """The first micro-batch of bucket ``key`` and its padded ELL, at the
+    bucket's degree as a served batch binds it: (batch, indices, weights)."""
+    batch = next(b for k, _, b in micro_batches(graphs, policy) if k == key)
+    idx, wts, _ = batch.graph.to_ell(pad_to=batch.d_bucket)
+    return batch, idx, wts
+
+
 @dataclass
 class TrafficProfile:
     """Recorded per-bucket traffic: what a serving process actually saw.

@@ -12,6 +12,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 
 @dataclass(frozen=True)
@@ -70,6 +71,17 @@ class CSRGraph:
             wts[r, :k] = self.values[s : s + k]
             msk[r, :k] = True
         return idx, wts, msk
+
+
+def to_torch_csr(g: CSRGraph, device) -> torch.Tensor:
+    """``g`` as a torch sparse CSR tensor on ``device`` (the operand of
+    ``torch.sparse.mm``)."""
+    return torch.sparse_csr_tensor(
+        torch.as_tensor(g.row_ptr.astype(np.int64), device=device),
+        torch.as_tensor(g.col_idx.astype(np.int64), device=device),
+        torch.as_tensor(g.values, device=device),
+        size=(g.n_nodes, g.n_nodes),
+    )
 
 
 def from_edges(

@@ -154,6 +154,13 @@ def make_graph(spec: DatasetSpec, rng: np.random.Generator) -> CSRGraph:
     return from_edges(n, src, dst)
 
 
+def sample_graphs(spec: DatasetSpec, n: int, seed: int = 0) -> list[CSRGraph]:
+    """``n`` graphs of ``spec``, drawn by :func:`make_graph` from one
+    generator seeded with ``seed``."""
+    rng = np.random.default_rng(seed)
+    return [make_graph(spec, rng) for _ in range(n)]
+
+
 def load_dataset(name: str, seed: int = 0) -> tuple[CSRGraph, DatasetSpec]:
     """One evaluation batch per paper Sec. 5.1.2 (block-diagonal for
     graph-classification datasets, the full graph for node classification)."""

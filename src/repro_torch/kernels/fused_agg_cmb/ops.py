@@ -17,8 +17,25 @@ from .ref import fused_ref
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIBRARY = CudaLibrary(
     Path(__file__).with_name("fused_agg_cmb.cu"),
-    {"fused_agg_cmb_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},
+    {"fused_agg_cmb_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+     "fused_agg_cmb_plan": [_I, _I, _I, _I, _I, _P, ctypes.POINTER(ctypes.c_int)]},
 )
+PLAN_KEYS = ("grid_x", "grid_y", "slices", "threads", "smem", "rows", "cap", "fc", "gt",
+             "vec", "nc")
+
+
+def plan(indices, x, w) -> dict:
+    """The launch :func:`fused_agg_cmb` makes for these operands (on the
+    card; builds the library): grid (row blocks, G tiles, F slices: the CTAs
+    of one cluster), threads, shared-memory bytes, rows per CTA, staged
+    slot capacity, columns per F chunk, output columns per CTA, columns per
+    load, column groups per thread."""
+    vals = (ctypes.c_int * len(PLAN_KEYS))()
+    code = LIBRARY.load().fused_agg_cmb_plan(indices.shape[0], indices.shape[1],
+                                             x.shape[1], w.shape[1],
+                                             DTYPE_CODES[x.dtype], x.data_ptr(), vals)
+    LIBRARY.check(code, "fused_agg_cmb plan")
+    return dict(zip(PLAN_KEYS, vals))
 
 
 def fused_agg_cmb(indices, weights, x, w, band_size=128, block_f=None):

@@ -1,26 +1,38 @@
-"""Per-kernel readings on one CUDA card for the tensor-core and CUDA-core
-kernels of ``flash_attention`` and ``gemm_dataflow``, beside their library
-calls; not a part of any model path.
+"""Per-kernel readings on one CUDA card for every kernel of the port --
+``spmm``, ``fused_agg_cmb``, ``flash_attention`` and ``gemm_dataflow`` --
+beside their library calls; not a part of any model path.
 
-    PYTHONPATH=src python -m repro_torch.kernels.profile [--out FILE]
+    PYTHONPATH=src python -m repro_torch.kernels.profile [--only gnn|lm] [--out FILE]
+        [--gnn-from CHECKOUT]
 
-For flash attention at smollm-135m prefill (bf16) and ``gemm`` at smollm's
-``w_gate`` (bf16) and cora's layer-0 combination (f32), each dataflow:
+For ``spmm`` and ``fused_agg_cmb`` at cora's layer 0 (f32) and at the
+layer-0 shapes of the reddit-bin (512, 256) serving bucket (f32), flash
+attention at smollm-135m prefill (bf16) and ``gemm`` at smollm's ``w_gate``
+(bf16) and cora's layer-0 combination (f32), each dataflow:
 
 - the kernel's device time from ``torch.profiler`` (CUPTI kernel records,
   mean of ``--iters`` calls, L2 flushed before each), and the library
-  call's (SDPA, ``torch.matmul``) taken the same way;
+  call's (``torch.sparse.mm``; for the fused kernel the two-call pair
+  ``torch.sparse.mm(csr, x) @ w``; SDPA; ``torch.matmul``) taken the same way;
 - achieved rates: the least bytes the function moves, and its operations,
   over that time, each as a share of the card's rate;
 - resources: ptxas's registers and spills per instantiation, the CTA's
   threads and shared memory, the CTAs an SM holds by each limit, the grid
-  and its waves;
+  and its waves (the GNN kernels report their launch through ``plan``);
 - ablations: copies of the kernel source with one stage taken out, built
   and timed the same way (their outputs are wrong by design; only their
   time is read).  The gap to the full kernel is what that stage costs on
   the critical path;
 - the host cost of one ``cuTensorMapEncodeTiled`` call at the shapes the
   wrappers encode (a small timer built beside the ablations).
+- for the GNN kernels at the reddit-bin shape, two input-side readings:
+  every row cut to its first 16 slots (no hub rows), and the longest row
+  alone; and the fused kernel built with at most 8 rows a CTA (``rows_8``:
+  four times the w re-reads) and with F in one slice (``slices_1``: no
+  cluster, one SM per row block);
+- ``--gnn-from CHECKOUT``: the GNN kernels also built from another
+  checkout's ``spmm.cu`` and ``fused_agg_cmb.cu`` (the parent commit's, for
+  a before/after reading in one process), timed on the same inputs.
 
 One JSON line per reading; ``--out`` also writes them all to a file.
 """
@@ -84,6 +96,23 @@ ABLATIONS = {
         "      if (rows < 0)  // ablation: the x slab is filled, no product\n"
         "        cc_partial<T, true, false>(p, xs, nullptr, r0, cb * kCcCols, k0, rows, acc);\n")],
 }
+# the GNN kernels: the slot lists staged and nothing gathered; the
+# gathers without the combination
+ABLATIONS[("spmm", "stage_only")] = [(
+    "  for (int cv = lane; cv < ncol; cv += NC * lanes) {\n",
+    "  for (int cv = lane; cv < 0 * ncol; cv += NC * lanes) {  // ablation: no gathers\n")]
+ABLATIONS[("fused_agg_cmb", "stage_only")] = [(
+    "    if (f0 + lane * VEC < f) {\n",
+    "    if (f0 + lane * VEC < 0 * f) {  // ablation: no gathers\n")]
+ABLATIONS[("fused_agg_cmb", "gathers_only")] = [(
+    "    for (int cc = ks; cc < nc; cc += ksn) {\n",
+    "    for (int cc = ks; cc < 0 * nc; cc += ksn) {  // ablation: no combination\n")]
+# not ablations: the fused kernel with at most 8 rows a CTA (four times the
+# w re-reads), and with F in one slice (no cluster); outputs right
+ABLATIONS[("fused_agg_cmb", "rows_8")] = [(
+    "constexpr int kMaxRows = 32;", "constexpr int kMaxRows = 8;")]
+ABLATIONS[("fused_agg_cmb", "slices_1")] = [(
+    "constexpr int kMaxSlices = 4;", "constexpr int kMaxSlices = 1;")]
 ABLATIONS[("flash_attention", "feed_only")] = ABLATIONS[("flash_attention", "no_softmax")] + \
     ABLATIONS[("flash_attention", "no_pv")] + [(
         "    const uint32_t k_addr = hopper::smem_u32(ks + st * NP * kKVPanel);\n",
@@ -137,8 +166,8 @@ def emit(record: dict, sink: list) -> None:
 def variant_library(lib: CudaLibrary, name: str, patches) -> CudaLibrary:
     """A copy of ``lib``'s source with ``patches`` applied, as a library of
     its own under the build directory."""
-    text = lib.source.read_text().replace('#include "../hopper.cuh"',
-                                          f'#include "{KERNELS / "hopper.cuh"}"')
+    text = re.sub(r'#include "\.\./([^"]+)"', lambda m: f'#include "{KERNELS / m.group(1)}"',
+                  lib.source.read_text())
     for old, new in patches:
         if text.count(old) != 1:
             raise RuntimeError(f"ablation {name}: patch site not found once: {old!r}")
@@ -216,7 +245,11 @@ def device_ms(fn, flush, iters: int) -> tuple[float, list[str]]:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--only", choices=("gnn", "lm"), default=None,
+                    help="the GNN kernels or the LM kernels alone")
     ap.add_argument("--out", type=Path, default=None)
+    ap.add_argument("--gnn-from", type=Path, default=None, metavar="CHECKOUT",
+                    help="also time the GNN kernels built from this checkout's sources")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile: needs a CUDA device")
@@ -224,21 +257,33 @@ def main(argv=None) -> int:
 
     from .flash_attention import flash_attention
     from .flash_attention import ops as fops
+    from .fused_agg_cmb import ops as agg_ops
     from .gemm_dataflow import DATAFLOWS, gemm, plan
     from .gemm_dataflow import ops as gops
+    from .spmm import ops as sp_ops
 
     records: list = []
-    variants = {key: variant_library({"flash_attention": fops.LIBRARY,
-                                      "gemm_dataflow": gops.LIBRARY}[key[0]], key[1], patches)
-                for key, patches in ABLATIONS.items()}
+    libs = {"flash_attention": fops.LIBRARY, "gemm_dataflow": gops.LIBRARY,
+            "spmm": sp_ops.LIBRARY, "fused_agg_cmb": agg_ops.LIBRARY}
+    wanted = {"gnn": ("spmm", "fused_agg_cmb"), "lm": ("flash_attention", "gemm_dataflow"),
+              None: tuple(libs)}[args.only]
+    variants = {key: variant_library(libs[key[0]], key[1], patches)
+                for key, patches in ABLATIONS.items() if key[0] in wanted}
+    before = {}
+    if args.gnn_from and "spmm" in wanted:
+        src = args.gnn_from / "src" / "repro_torch" / "kernels"
+        before = {name: CudaLibrary(src / name / f"{name}.cu", {fn: libs[name].functions[fn]})
+                  for name, fn in (("spmm", "spmm_ell_launch"),
+                                   ("fused_agg_cmb", "fused_agg_cmb_launch"))}
     timer_cu = PROFILE_DIR / "tensor_map" / "tensor_map.cu"
     timer_cu.parent.mkdir(parents=True, exist_ok=True)
     timer_cu.write_text(TENSOR_MAP_TIMER.replace("HOPPER", str(KERNELS / "hopper.cuh")))
     timer = CudaLibrary(timer_cu, {"tensor_map_us": [ctypes.POINTER(ctypes.c_double),
                                                      ctypes.c_void_p, ctypes.c_void_p,
                                                      ctypes.c_int]})
-    seconds = build_libraries([fops.LIBRARY, gops.LIBRARY, timer, *variants.values()])
-    regs = ptxas_registers([fops.LIBRARY, gops.LIBRARY])
+    seconds = build_libraries([*(libs[k] for k in wanted), timer, *variants.values(),
+                               *before.values()])
+    regs = ptxas_registers([libs[k] for k in wanted])
     emit({"reading": "build", "seconds": seconds, "ptxas": regs,
           "device": torch.cuda.get_device_name(0)}, records)
 
@@ -281,7 +326,14 @@ def main(argv=None) -> int:
               "entry": launch["entry"], "ptxas": kernel, "threads": launch["threads"],
               "smem_bytes": launch["smem"], "ctas": launch["ctas"], **occ,
               "waves": launch["ctas"] / (occ["ctas_per_sm"] * sms),
-              "ablation_ms": abl}, records)
+              "ablation_ms": abl,
+              **{k: v for k, v in launch.items() if k not in ("entry", "threads", "smem",
+                                                              "ctas")}}, records)
+
+    if "spmm" in wanted:
+        gnn_readings(reading, dev, sp_ops, agg_ops, flush, args.iters, records, before)
+    if "flash_attention" not in wanted:
+        return finish(args, records)
 
     # flash attention, smollm-135m prefill
     b, hq, hkv, s, d = 4, 9, 3, 1024, 64
@@ -326,10 +378,93 @@ def main(argv=None) -> int:
                     lambda: torch.matmul(x, w), gops.LIBRARY, ablations,
                     (vv * f + f * g + vv * g) * es, 2 * vv * f * g, dtype, launch)
 
+    return finish(args, records)
+
+
+def finish(args, records) -> int:
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text("\n".join(json.dumps(r) for r in records) + "\n")
     return 0
+
+
+def gnn_readings(reading, dev, sp_ops, agg_ops, flush, iters, records, before) -> None:
+    """``spmm`` and ``fused_agg_cmb`` at cora's layer 0 and at chip_smoke.py's
+    serving shape (the first batch of the reddit-bin (512, 256) bucket of
+    its 32 graphs, seed 0), G = 16, float32.  The least bytes count the x
+    rows that non-zero weights reference (a pad row's weight-0 self-loop
+    reads none).  ``before``: libraries built from another checkout, timed
+    in place of this one's on the same inputs."""
+    from ..graphs import TABLE4, bucket_ell, load_dataset, sample_graphs, to_torch_csr
+
+    cora, _ = load_dataset("cora")
+    batch, r_idx, r_wts = bucket_ell(sample_graphs(TABLE4["reddit-bin"], 32, seed=0),
+                                     (512, 256))
+    cases = [("cora_l0_f32", cora, *cora.to_ell(128)[:2], 1433),
+             ("reddit_bin_512x256_l0_f32", batch.graph, r_idx, r_wts,
+              TABLE4["reddit-bin"].n_features)]
+    g = 16
+    for name, graph, idx, wts, f in cases:
+        idx, wts = torch.as_tensor(idx, device=dev), torch.as_tensor(wts, device=dev)
+        rng = np.random.default_rng(1)
+        x = torch.as_tensor(rng.normal(size=(graph.n_nodes, f)).astype(np.float32), device=dev)
+        w = torch.as_tensor((rng.normal(size=(f, g)) / np.sqrt(f)).astype(np.float32),
+                            device=dev)
+        a = to_torch_csr(graph, dev)
+        real = wts != 0
+        live = real.any(dim=1)
+        nnz, v_pad = int(real.sum()), idx.shape[0]
+        x_bytes = int(torch.unique(idx[real]).numel()) * f * 4
+        inputs = {}
+        if name.startswith("reddit"):
+            # input-side readings: every row cut to its first 16 slots (no
+            # hub rows), and the longest row alone (every other row's
+            # weights 0: the other CTAs only trim and write zeros)
+            cut = wts.clone()
+            cut[:, 16:] = 0
+            top = int(real.sum(1).argmax())
+            alone = torch.zeros_like(wts)
+            alone[top] = wts[top]
+            inputs.update(rows_cut_to_16_slots=cut, longest_row_alone=alone)
+        for label, wv in inputs.items():
+            emit({"reading": "input", "case": name, "input": label,
+                  "longest_row": int((wv != 0).sum(1).max()),
+                  "spmm_device_ms": device_ms(lambda: sp_ops.spmm(idx, wv, x), flush, iters)[0],
+                  "fused_agg_cmb_device_ms": device_ms(
+                      lambda: agg_ops.fused_agg_cmb(idx, wv, x, w), flush, iters)[0]}, records)
+        if before:
+            times = {}
+            for label, libs in (("before", before), ("after", None)):
+                for ops, fn in ((sp_ops, lambda: sp_ops.spmm(idx, wts, x)),
+                                (agg_ops, lambda: agg_ops.fused_agg_cmb(idx, wts, x, w))):
+                    saved = ops.LIBRARY._lib
+                    try:
+                        if libs:
+                            ops.LIBRARY._lib = libs[ops.LIBRARY.name].load()
+                        times[f"{ops.LIBRARY.name}_{label}_device_ms"] = device_ms(
+                            fn, flush, iters)[0]
+                    finally:
+                        ops.LIBRARY._lib = saved
+            emit({"reading": "before_after", "case": name, **times}, records)
+        sp = sp_ops.plan(idx, x)
+        reading(f"spmm {name}", lambda: sp_ops.spmm(idx, wts, x),
+                lambda: torch.sparse.mm(a, x), sp_ops.LIBRARY, ("stage_only",),
+                nnz * 8 + x_bytes + v_pad * f * 4, 2 * nnz * f, torch.float32,
+                {"entry": f"spmm_ell_kernel<float, {sp['vec']}, {sp['nc']}>",
+                 "threads": sp["threads"], "smem": sp["smem"], "ctas": sp["grid"],
+                 "plan": sp})
+        fu = agg_ops.plan(idx, x, w)
+        blocks = int(torch.unique(live.nonzero()[:, 0] // fu["rows"]).numel())
+        reading(f"fused_agg_cmb {name}", lambda: agg_ops.fused_agg_cmb(idx, wts, x, w),
+                lambda: torch.sparse.mm(a, x) @ w, agg_ops.LIBRARY,
+                ("stage_only", "gathers_only", "rows_8", "slices_1"),
+                nnz * 8 + x_bytes + f * g * 4 + v_pad * g * 4,
+                2 * nnz * f + 2 * int(live.sum()) * f * g, torch.float32,
+                {"entry": f"fused_agg_cmb_kernel<float, {fu['vec']}, {fu['nc']}>",
+                 "threads": fu["threads"], "smem": fu["smem"],
+                 "ctas": fu["grid_x"] * fu["grid_y"] * fu["slices"], "plan": fu,
+                 # every row block with a real slot reads all of w from L2
+                 "w_l2_bytes": blocks * f * g * 4, "x_bytes": x_bytes})
 
 
 if __name__ == "__main__":

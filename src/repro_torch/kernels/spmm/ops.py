@@ -3,8 +3,9 @@
 A CPU tensor goes to the plain version (:func:`spmm_ref`); a CUDA tensor
 launches the kernel or raises.  ``block_v`` / ``block_f`` keep the
 reference wrapper's signature: they are schedule knobs, and the kernel
-picks its own CTA shape (every output element is reduced over the ELL
-slots in order, so the result does not depend on it).
+picks its own CTA shape (:func:`plan` reports it; every output element is
+reduced over the row's real ELL slots in order, so the result does not
+depend on it).
 """
 import ctypes
 from pathlib import Path
@@ -18,8 +19,21 @@ from .ref import spmm_ref
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIBRARY = CudaLibrary(
     Path(__file__).with_name("spmm.cu"),
-    {"spmm_ell_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
+    {"spmm_ell_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+     "spmm_ell_plan": [_I, _I, _I, _I, _P, ctypes.POINTER(ctypes.c_int)]},
 )
+PLAN_KEYS = ("grid", "threads", "smem", "rows", "cap", "vec", "lanes", "nc")
+
+
+def plan(indices, x) -> dict:
+    """The launch :func:`spmm` makes for these operands (on the card; builds
+    the library): grid, threads, shared-memory bytes, rows per CTA, staged
+    slot capacity, columns per load, column lanes, column groups per walk."""
+    vals = (ctypes.c_int * len(PLAN_KEYS))()
+    code = LIBRARY.load().spmm_ell_plan(indices.shape[0], indices.shape[1], x.shape[1],
+                                        DTYPE_CODES[x.dtype], x.data_ptr(), vals)
+    LIBRARY.check(code, "spmm_ell plan")
+    return dict(zip(PLAN_KEYS, vals))
 
 
 def spmm(indices, weights, x, block_v=128, block_f=128):

@@ -34,7 +34,47 @@ def dev():
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def skewed_ell(v, seed, d=256):
+    """A padded ELL of skewed degree: one hub row of full D, the rest of
+    degree 1-2; row 5 has all-zero weights (its indices point at real rows)
+    and row 7 a weight-0 slot in the middle of its real slots."""
+    rng = np.random.default_rng(seed)
+    idx = np.zeros((v, d), np.int32)
+    wts = np.zeros((v, d), np.float32)
+    deg = rng.integers(1, 3, v)
+    deg[v // 3] = d
+    for r in range(v):
+        idx[r, :deg[r]] = rng.integers(0, v, deg[r])
+        wts[r, :deg[r]] = rng.uniform(0.1, 1.0, deg[r])
+    idx[5, :3], wts[5] = (1, 2, 3), 0.0
+    idx[7, :3], wts[7, :3] = (4, 9, 11), (0.5, 0.0, 0.25)
+    return idx, wts
+
+
 def ell(v, deg, seed, dev, d_pad=None):
+    """A random graph's padded ELL of mean degree ``deg``; with
+    ``deg="skewed"`` the ELL of :func:`skewed_ell`; with ``deg="dense"``
+    every row holds 256 real slots (more real slots in a CTA's rows than the
+    kernels stage in shared memory: the rest are read from the ELL); with
+    ``deg="padded"`` a serving batch's layout: a graph on the first half of
+    the rows, then pad rows whose one slot is a weight-0 self-loop (whole
+    CTAs without a real slot)."""
+    if deg == "skewed":
+        return tuple(torch.as_tensor(a, device=dev) for a in skewed_ell(v, seed))
+    if deg == "padded":
+        rng = np.random.default_rng(seed)
+        half = v // 2
+        g = from_edges(half, rng.integers(0, half, 3 * half), rng.integers(0, half, 3 * half))
+        gi, gw, _ = g.to_ell(pad_to=32)
+        idx, wts = np.zeros((v, 32), np.int32), np.zeros((v, 32), np.float32)
+        idx[:half], wts[:half] = gi, gw
+        idx[half:, 0] = np.arange(half, v)
+        return torch.as_tensor(idx, device=dev), torch.as_tensor(wts, device=dev)
+    if deg == "dense":
+        rng = np.random.default_rng(seed)
+        idx = rng.integers(0, v, (v, 256)).astype(np.int32)
+        wts = rng.uniform(0.1, 1.0, (v, 256)).astype(np.float32)
+        return torch.as_tensor(idx, device=dev), torch.as_tensor(wts, device=dev)
     rng = np.random.default_rng(seed)
     n = v * deg // 2
     g = from_edges(v, rng.integers(0, v, n), rng.integers(0, v, n))
@@ -47,33 +87,60 @@ def randn(shape, seed, dev, dtype=torch.float32):
     return torch.as_tensor(a, device=dev).to(dtype)
 
 
-# (V, degree, F): ragged rows and columns, a width-1 table, a wide table
-SPMM_SHAPES = [(64, 4, 32), (200, 8, 96), (17, 3, 5), (333, 6, 1), (130, 5, 1433)]
-# (V, degree, F, G): G within one tile, G over several tiles, ragged F
-FUSED_SHAPES = [(64, 4, 32, 16), (130, 6, 48, 8), (257, 5, 1433, 16),
-                (90, 3, 70, 100), (40, 2, 3, 1)]
+TOL = {"f32": {"spmm": dict(rtol=1e-4, atol=1e-5), "fused": dict(rtol=2e-4, atol=2e-4)},
+       "bf16": {"spmm": dict(rtol=2e-2, atol=2e-2), "fused": dict(rtol=2e-2, atol=2e-2)}}
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+# (V, degree, F, dtype): ragged rows and columns, a width-1 table, a wide table;
+# skewed degree (a hub row of D = 256) with odd F (one-element loads), F of
+# 8- and 16-byte loads, and narrow F; V = 1001 is a multiple of no CTA's rows;
+# rows of 256 real slots, more than a CTA stages
+SPMM_SHAPES = [(64, 4, 32, "f32"), (200, 8, 96, "f32"), (17, 3, 5, "f32"),
+               (333, 6, 1, "f32"), (130, 5, 1433, "f32"), (1001, "skewed", 1001, "f32"),
+               (601, "skewed", 1002, "f32"), (257, 5, 1000, "f32"),
+               (1001, "skewed", 16, "f32"), (1001, "skewed", 1, "f32"),
+               (300, "dense", 1, "f32"), (2000, "padded", 1002, "f32"),
+               # bfloat16: 16-byte loads (8 elements), 4-byte (2), and one element
+               (300, 6, 512, "bf16"), (300, 6, 130, "bf16"), (601, "skewed", 1001, "bf16")]
+# (V, degree, F, G, dtype): G within one tile, G over several tiles, ragged F;
+# skewed degree with F odd and G of 8, 16 and 100, and F even (two-element
+# loads); narrow F; rows of 256 real slots, more than a CTA stages; pad rows
+# filling whole CTAs; bfloat16 with two-element and one-element loads
+FUSED_SHAPES = [(64, 4, 32, 16, "f32"), (130, 6, 48, 8, "f32"), (257, 5, 1433, 16, "f32"),
+                (90, 3, 70, 100, "f32"), (40, 2, 3, 1, "f32"),
+                (601, "skewed", 1001, 8, "f32"), (601, "skewed", 1001, 16, "f32"),
+                (601, "skewed", 1001, 100, "f32"), (601, "skewed", 1002, 16, "f32"),
+                (1001, "skewed", 16, 8, "f32"), (1001, "skewed", 1, 16, "f32"),
+                (2200, "dense", 40, 16, "f32"), (2000, "padded", 1002, 16, "f32"),
+                (300, 6, 512, 16, "bf16"), (601, "skewed", 1001, 16, "bf16")]
 
 
-@pytest.mark.parametrize("v,deg,f", SPMM_SHAPES)
-def test_spmm_kernel_matches_plain(dev, v, deg, f):
+@pytest.mark.parametrize("v,deg,f,dtype", SPMM_SHAPES)
+def test_spmm_kernel_matches_plain(dev, v, deg, f, dtype):
     idx, wts = ell(v, deg, v, dev)
-    x = randn((v, f), v + 1, dev)
+    x = randn((v, f), v + 1, dev, DTYPES[dtype])
     before = spmm.launches
     out = spmm(idx, wts, x)
     torch.cuda.synchronize()
     assert spmm.launches == before + 1
-    torch.testing.assert_close(out, spmm_ref(idx, wts, x), rtol=1e-4, atol=1e-5)
+    assert out.dtype == x.dtype
+    torch.testing.assert_close(out, spmm_ref(idx, wts, x), **TOL[dtype]["spmm"])
+    assert torch.equal(out, spmm(idx, wts, x))
+    assert spmm.launches == before + 2
 
 
-@pytest.mark.parametrize("v,deg,f,g", FUSED_SHAPES)
-def test_fused_kernel_matches_plain(dev, v, deg, f, g):
+@pytest.mark.parametrize("v,deg,f,g,dtype", FUSED_SHAPES)
+def test_fused_kernel_matches_plain(dev, v, deg, f, g, dtype):
     idx, wts = ell(v, deg, v, dev)
-    x, w = randn((v, f), v + 1, dev), randn((f, g), v + 2, dev)
+    x, w = randn((v, f), v + 1, dev, DTYPES[dtype]), randn((f, g), v + 2, dev, DTYPES[dtype])
     before = fused_agg_cmb.launches
     out = fused_agg_cmb(idx, wts, x, w, band_size=32, block_f=16)
     torch.cuda.synchronize()
     assert fused_agg_cmb.launches == before + 1
-    torch.testing.assert_close(out, fused_ref(idx, wts, x, w), rtol=2e-4, atol=2e-4)
+    assert out.dtype == x.dtype
+    torch.testing.assert_close(out, fused_ref(idx, wts, x, w), **TOL[dtype]["fused"])
+    assert torch.equal(out, fused_agg_cmb(idx, wts, x, w, band_size=32, block_f=16))
+    assert fused_agg_cmb.launches == before + 2
 
 
 def test_bf16_kernels_match_plain(dev):
@@ -93,6 +160,26 @@ def test_spmm_streamed_is_bit_identical(dev):
     x = randn((3000, 40), 12, dev)
     assert torch.equal(spmm_streamed(idx, wts, x, block_rows=1024),
                        spmm(idx, wts, x))
+
+
+def test_spmm_streamed_is_bit_identical_on_skewed_ell(dev):
+    idx, wts = ell(3001, "skewed", 13, dev)
+    x = randn((3001, 1001), 14, dev)
+    assert torch.equal(spmm_streamed(idx, wts, x, block_rows=1024), spmm(idx, wts, x))
+
+
+def test_zero_rows_are_exactly_zero_and_middle_zero_slots_are_walked(dev):
+    """Rows whose weights are all 0 come out exactly 0 from both kernels;
+    a weight-0 slot in the middle of a row does not end the row."""
+    idx, wts = ell(601, "skewed", 15, dev)
+    x, w = randn((601, 300), 16, dev), randn((300, 16), 17, dev)
+    zero = (wts == 0).all(dim=1)
+    assert bool(zero[5]) and int(zero.sum()) == 1
+    out_s, out_f = spmm(idx, wts, x), fused_agg_cmb(idx, wts, x, w)
+    assert bool((out_s[zero] == 0).all()) and bool((out_f[zero] == 0).all())
+    row7 = 0.5 * x[4] + 0.25 * x[11]
+    torch.testing.assert_close(out_s[7], row7, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(out_f[7], row7 @ w, rtol=2e-4, atol=2e-4)
 
 
 @pytest.mark.parametrize("policy,order", [("sp_opt", "AC"), ("seq", "AC"),

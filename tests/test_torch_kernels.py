@@ -165,3 +165,147 @@ def test_built_library_is_keyed_by_its_source(tmp_path):
     assert first.parent == BUILD_DIR and first.name.startswith("k-")
     src.write_text("// two")
     assert lib.so_path() != first
+
+
+# -- the padded-ELL layout the CUDA kernels rely on --------------------------
+# Both kernels walk only a row's real slots, found inside the launch as the
+# slots before the row's trailing run of weight-0 slots.  That is exact only
+# because every producer of the ELL puts a row's real slots first and pads
+# after them with index 0 and weight 0.
+
+
+def assert_real_slots_first(g, idx, wts):
+    """Row r of (idx, wts) holds g's neighbor list of r in its first
+    deg(r) slots, then index 0 and weight 0; rows past V are all padding."""
+    deg = g.nnz
+    for r in range(idx.shape[0]):
+        n = int(deg[r]) if r < g.n_nodes else 0
+        s = int(g.row_ptr[r]) if r < g.n_nodes else 0
+        np.testing.assert_array_equal(idx[r, :n], g.col_idx[s:s + n])
+        np.testing.assert_array_equal(wts[r, :n], g.values[s:s + n])
+        assert not idx[r, n:].any() and not wts[r, n:].any(), f"row {r}"
+
+
+def _csr_graph(kind):
+    from repro_torch.graphs import from_edges as torch_from_edges
+    from repro_torch.graphs import load_dataset
+
+    if kind == "cora":
+        return load_dataset("cora")[0]
+    rng = np.random.default_rng(3)
+    return torch_from_edges(300, rng.integers(0, 300, 900), rng.integers(0, 300, 900))
+
+
+@pytest.mark.parametrize("kind,block_rows", [("random", 1), ("random", 8), ("cora", 128)])
+def test_to_ell_puts_real_slots_first_and_pads_with_zero(kind, block_rows):
+    g = _csr_graph(kind)
+    idx, wts, msk = g.to_ell(block_rows)
+    assert idx.shape[0] % block_rows == 0 and idx.shape[1] == g.max_degree
+    assert_real_slots_first(g, idx, wts)
+    np.testing.assert_array_equal(msk.sum(1)[:g.n_nodes], g.nnz)
+
+
+def test_ell_adjacency_pad_to_pads_with_zero():
+    from repro_torch.gnn.layers import EllAdjacency
+
+    g = _csr_graph("random")
+    adj = EllAdjacency.from_csr(g, pad_to=g.max_degree + 37, device="cpu")
+    assert adj.indices.shape == (g.n_nodes, g.max_degree + 37)
+    assert_real_slots_first(g, adj.indices.numpy(), adj.weights.numpy())
+
+
+def test_assembled_batch_ell_puts_real_slots_first():
+    """A serving micro-batch: member graphs, then zero-weight pad rows, each
+    row padded to the bucket's degree with index 0 and weight 0; the pad
+    rows' one real slot (a self-loop) has weight 0, so their trimmed length
+    is 0."""
+    from repro_torch.graphs import TABLE4, BucketPolicy, assemble, bucketize
+    from repro_torch.graphs.datasets import make_graph
+
+    rng = np.random.default_rng(0)
+    graphs = [make_graph(TABLE4["imdb-bin"], rng) for _ in range(6)]
+    policy = BucketPolicy()
+    for key, ids in bucketize(graphs, policy).items():
+        batch = assemble([graphs[i] for i in ids], policy)
+        idx, wts, _ = batch.graph.to_ell(pad_to=batch.d_bucket)
+        assert idx.shape == (batch.graph.n_nodes, key[1])
+        assert_real_slots_first(batch.graph, idx, wts)
+        real = int(batch.sizes.sum())
+        assert not wts[real:].any()
+
+
+@pytest.mark.parametrize("block_rows", [64, 128])
+def test_spmm_streamed_slabs_keep_the_padding(monkeypatch, block_rows):
+    """Each slab spmm_streamed hands to ``spmm`` keeps its rows' weights as
+    they were, and its remapped indices still point the padded (weight-0)
+    slots at a row of x and the real slots at the same rows as before."""
+    from repro_torch.kernels.spmm import ops
+
+    g = _csr_graph("random")
+    idx, wts, _ = g.to_ell(pad_to=g.max_degree + 5)
+    x = t(rand((g.n_nodes, 12), seed=4))
+    slabs = []
+    real_spmm = ops.spmm
+
+    def recording_spmm(i, w, xs, **kw):
+        slabs.append((i, w, xs))
+        return real_spmm(i, w, xs, **kw)
+
+    monkeypatch.setattr(ops, "spmm", recording_spmm)
+    out = ops.spmm_streamed(t(idx), t(wts), x, block_rows=block_rows)
+    assert len(slabs) == -(-g.n_nodes // block_rows)
+    for k, (i, w, xs) in enumerate(slabs):
+        rows = slice(k * block_rows, (k + 1) * block_rows)
+        assert torch.equal(w, t(wts[rows]))
+        # the slab's x is the closure's rows, so xs[i] == x[idx] slot by slot
+        assert torch.equal(xs[i.long()], x[t(idx[rows]).long()])
+        pad = w == 0
+        assert bool((i[pad] == 0).all())  # row 0 of x is in every closure
+    np.testing.assert_allclose(out.numpy(), spmm_ref(t(idx), t(wts), x).numpy(),
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_micro_batches_serve_every_graph_once_in_bucket_order():
+    """``micro_batches`` is the serving loop's batching: bucketize, then
+    each bucket's members in chunks of ``max_graphs``, assembled."""
+    from repro_torch.graphs import TABLE4, BucketPolicy, bucketize, micro_batches, sample_graphs
+
+    graphs = sample_graphs(TABLE4["reddit-bin"], 32, seed=0)
+    policy = BucketPolicy(max_graphs=8)
+    got = list(micro_batches(graphs, policy))
+    want = [(key, ids[s:s + 8]) for key, ids in bucketize(graphs, policy).items()
+            for s in range(0, len(ids), 8)]
+    assert [(k, list(c)) for k, c, _ in got] == [(k, list(c)) for k, c in want]
+    assert sorted(i for _, c, _ in got for i in c) == list(range(32))
+    for key, chunk, batch in got:
+        assert batch.n_graphs == len(chunk) and (batch.v_bucket, batch.d_bucket) == key
+        np.testing.assert_array_equal(batch.sizes, [graphs[i].n_nodes for i in chunk])
+
+
+def test_bucket_ell_is_the_ell_a_served_batch_binds():
+    """``bucket_ell`` gives the first batch of a bucket and the ELL that
+    binding it at the bucket's degree builds (``EllAdjacency.from_csr``)."""
+    from repro_torch.gnn.layers import EllAdjacency
+    from repro_torch.graphs import TABLE4, bucket_ell, micro_batches, sample_graphs
+
+    graphs = sample_graphs(TABLE4["reddit-bin"], 32, seed=0)
+    first = {}
+    for key, chunk, _ in micro_batches(graphs):
+        first.setdefault(key, chunk)
+    for key, chunk in first.items():
+        batch, idx, wts = bucket_ell(graphs, key)
+        np.testing.assert_array_equal(batch.sizes, [graphs[i].n_nodes for i in chunk])
+        adj = EllAdjacency.from_csr(batch.graph, pad_to=batch.d_bucket, device="cpu")
+        np.testing.assert_array_equal(idx, adj.indices.numpy())
+        np.testing.assert_array_equal(wts, adj.weights.numpy())
+        assert_real_slots_first(batch.graph, idx, wts)
+
+
+@pytest.mark.parametrize("kind", ["random", "cora"])
+def test_to_torch_csr_is_the_graph(kind):
+    from repro_torch.graphs import to_torch_csr
+
+    g = _csr_graph(kind)
+    a = to_torch_csr(g, "cpu")
+    assert a.layout == torch.sparse_csr and a.shape == (g.n_nodes, g.n_nodes)
+    np.testing.assert_array_equal(a.to_dense().numpy(), g.to_dense())
