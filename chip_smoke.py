@@ -31,22 +31,44 @@ Phases, one JSON line each (no phase's error is caught):
 3. main       — ``repro_torch.compile`` on cora at the paper's Kipf widths
                 (1433 -> 16 -> 8): the searched schedule and forced
                 (sp_opt, AC), (seq, AC), (seq, CA) schedules, each on the
-                kernel tier and against its eager twin on the card.
+                kernel tier (seq: ``spmm``, its products on ``gemm``) and
+                against its eager twin on the card.
 4. serving    — 32 reddit-bin graphs: bucketize -> assemble -> compile per
                 bucket -> bind -> batched run with mean readout.  Each batch
                 is held against its eager twin, the fused kernel against its
                 plain version at the batch's shapes, and every per-graph
                 output against a solo run of that graph.
-5. gemm       — the dataflow GEMM's own entry point, the public op
+5. engine     — the ported serving runtime (``repro_torch.runtime``), driven
+                as a user drives it, at full width: (a) ``InferenceEngine``
+                (GCN 3782 -> 16 -> 8, the kernel tier, mean readout) serves
+                64 reddit-bin requests, each output held against a solo
+                kernel-tier run and the eager tier, then the same stream
+                again (no new build, bit-identical); (b) a second engine
+                under seeded faults and one ``kill_pallas`` window: every
+                fault a typed non-ok status, every ok output bit-identical
+                to (a)'s; (c) a revived engine on (a)'s ``ProgramStore``:
+                ``precompile()``, then no mapper search, no build,
+                bit-identical; (d) cora at 1433 -> 16 -> 8 made oversized
+                (``max_nodes=1024``) and served by ``row_stream``
+                partitions, bit-identical to the monolithic kernel-tier
+                forward under sp_opt/AC and under seq/CA; (e)
+                ``calibrate()`` on the card, the fitted model resolved by an
+                engine on its store, a measured ``rerank_topk``, then no
+                build on the request path.  Healthy parts assert no
+                downgrade, every result ``ok`` from the top tier, and a
+                kernel launch count that moved.
+6. gemm       — the dataflow GEMM's own entry point, the public op
                 ``gemm``, called once per dataflow on cora's layer-0
-                combination (no model path of the reference calls it).
-6. lm_serve   — ``repro_torch.launch.serve.generate`` on smollm-135m at full
+                combination (on the model path it is the kernel tier's
+                dense product: seq's combination, SAGE / GIN self terms).
+7. lm_serve   — ``repro_torch.launch.serve.generate`` on smollm-135m at full
                 width (batch 4, 1024-token prompts, 32 greedy tokens), with
                 the prefill logits held against the plain-version twin in
                 f32 and in bf16, then a depth-2 forward of the other dense
                 archs at full width against their twins.
 
-Launch counts are set to 0 just before phases 3-6 and read just after;
+Launch counts are set to 0 just before phases 3-7 (each part of the engine
+phase that serves the main path) and read just after;
 the ``{"kernels": [...]}`` line reports them.  The last line is
 ``{"ok": true, "device": {...}}``; it is printed only when every phase
 passed.  Weights and data are random, made from fixed seeds.
@@ -620,9 +642,9 @@ def phase_main(dev, counters) -> dict:
     x = randn((cora.n_nodes, cfg.f_in), 10, dev)
     params = None
     launches = {k: 0 for k in counters}
-    runs = [("searched", None, "fused_agg_cmb")] + [
+    runs = [("searched", None, ("fused_agg_cmb",))] + [
         (f"forced {p}/{o}", ModelSchedule.from_policies(p, o, cfg.dims),
-         "fused_agg_cmb" if p == "sp_opt" else "spmm")
+         ("fused_agg_cmb",) if p == "sp_opt" else ("spmm", "gemm_dataflow"))
         for p, o in (("sp_opt", "AC"), ("seq", "AC"), ("seq", "CA"))
     ]
     for label, schedule, expect in runs:
@@ -636,7 +658,8 @@ def phase_main(dev, counters) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         counts = {k: c.launches for k, c in counters.items()}
-        check(counts[expect] > 0, f"{label}: {expect} never launched")
+        for k in expect:
+            check(counts[k] > 0, f"{label}: {k} never launched")
         for k in launches:
             launches[k] += counts[k]
         eager = prog.degraded(use_pallas=False).run(params, x)
@@ -732,6 +755,252 @@ def phase_serving(dev, counters) -> dict:
           "max_abs_err_vs_solo": worst,
           "max_abs_err_vs_eager": worst_eager,
           "max_abs_err_fused_vs_plain": worst_plain, "ok": True})
+    return launches
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def reddit_requests(n, f_in, seed):
+    """``n`` seeded reddit-bin graphs with seeded features, as requests."""
+    from repro_torch.graphs import TABLE4, sample_graphs
+    from repro_torch.runtime import Request
+
+    return [Request(graph=g, x=np.random.default_rng(seed * 1000 + i).normal(
+        size=(g.n_nodes, f_in)).astype(np.float32), rid=i)
+        for i, g in enumerate(sample_graphs(TABLE4["reddit-bin"], n, seed=seed))]
+
+
+def served_ok(results, eng, what) -> None:
+    """The no-hidden-fallback check: every result ``ok`` from the top tier
+    and no downgrade, so no kernel slipped into the eager tier."""
+    top = eng.ladder[0].name
+    for r in results:
+        check(r.status == "ok" and r.tier == top,
+              f"{what}: rid {r.rid} is {r.status} on {r.tier} ({r.error})")
+    check(eng.stats().n_downgrades == 0, f"{what}: {eng.stats().n_downgrades} downgrades")
+
+
+def same_outputs(got, want, what, exact=True) -> float:
+    worst = 0.0
+    for a, b in zip(got, want):
+        check(a.rid == b.rid, f"{what}: rid {a.rid} against {b.rid}")
+        if exact:
+            check(np.array_equal(a.output, b.output), f"{what}: rid {a.rid} differs")
+        else:
+            np.testing.assert_allclose(a.output, b.output, **TOL_PATH)
+        worst = max(worst, float(np.abs(a.output - b.output).max()))
+    return worst
+
+
+def phase_engine(dev, counters, n_requests=64) -> dict:
+    """The ported serving runtime, as a user drives it: (a) serve, (b)
+    chaos, (c) restart, (d) giant, (e) calibrate (see the module
+    docstring).  Returns the launches of (a), (c) and (d)."""
+    import dataclasses
+
+    import repro_torch
+    from repro_torch.core.calibrate import backend_fingerprint, calibrate
+    from repro_torch.core.hw import DEFAULT_ACCEL
+    from repro_torch.core.schedule import ModelSchedule
+    from repro_torch.gnn import GNNConfig
+    from repro_torch.graphs import TABLE4, BucketPolicy, load_dataset
+    from repro_torch.graphs.partition import plan_partition
+    from repro_torch.kernels.fused_agg_cmb.ops import plan as fused_plan
+    from repro_torch.runtime import (FaultInjector, FaultRule, InferenceEngine,
+                                     ProgramStore, Request, RetryPolicy, kill_pallas)
+
+    t_phase = time.perf_counter()
+    launches = {k: 0 for k in counters}
+
+    def count(fn):
+        reset_counts(counters)
+        out = fn()
+        sync(dev)
+        for k, c in counters.items():
+            launches[k] += c.launches
+        return out, {k: c.launches for k, c in counters.items()}
+
+    store_dir = Path(__file__).resolve().parent / "build" / "engine_store"
+    shutil.rmtree(store_dir, ignore_errors=True)
+    f_in = TABLE4["reddit-bin"].n_features
+    dims = [(f_in, 16), (16, 8)]
+    reqs = reddit_requests(n_requests, f_in, seed=2)
+
+    def engine(params=None, **kw):
+        return InferenceEngine(dims, params, use_pallas=kw.pop("use_pallas", True),
+                               readout="mean", device=dev, **kw)
+
+    # (a) serve, then the same stream again
+    eng = engine(store=ProgramStore(store_dir / "serve"))
+    params = eng.init(torch.Generator().manual_seed(3))
+    t0 = time.perf_counter()
+    first, counts = count(lambda: eng.submit(reqs))
+    cold_s = time.perf_counter() - t0
+    check(counts["fused_agg_cmb"] > 0 or counts["spmm"] > 0,
+          f"engine serve launched no kernel: {counts}")
+    served_ok(first, eng, "engine serve")
+    cold = eng.stats()
+    solo = engine(params, policy=BucketPolicy(max_graphs=1))
+    solo_res = solo.submit(reqs)
+    served_ok(solo_res, solo, "engine solo")
+    err_solo = same_outputs(first, solo_res, "serve vs solo", exact=False)
+    eager = engine(params, use_pallas=False)
+    eager_res = eager.submit(reqs)
+    err_eager = same_outputs(first, eager_res, "serve vs eager", exact=False)
+    t0 = time.perf_counter()
+    eager.submit(reqs)
+    eager_warm_s = time.perf_counter() - t0
+    tc0 = repro_torch.trace_count()
+    t0 = time.perf_counter()
+    again, _ = count(lambda: eng.submit(reqs))
+    warm_s = time.perf_counter() - t0
+    check(repro_torch.trace_count() == tc0, "the warm stream built executables")
+    served_ok(again, eng, "engine serve again")
+    same_outputs(again, first, "serve again")
+    warm = eng.stats()
+    walls = eng.monitor.times
+    emit({"phase": "engine", "part": "serve", "dataset": "reddit-bin", "dims": dims,
+          "requests": n_requests, "buckets": cold.n_buckets,
+          "batches_per_pass": cold.n_batches, "cold_wall_s": cold_s,
+          "warm_wall_s": warm_s, "warm_graphs_per_s": n_requests / warm_s,
+          "cold_p50_ms": cold.p50_ms, "cold_p99_ms": cold.p99_ms,
+          "p50_ms_both_passes": warm.p50_ms, "p99_ms_both_passes": warm.p99_ms,
+          "warm_batch_walls_ms": [w * 1e3 for w in walls[len(walls) // 2:]],
+          "cold_batch_walls_ms": [w * 1e3 for w in walls[: len(walls) // 2]],
+          "mapper_s": cold.search_s, "mapper_searches": cold.n_searches,
+          "build_s": cold.trace_s, "launches_first_pass": counts,
+          "new_builds_second_pass": 0, "second_pass_bit_identical": True,
+          "max_abs_err_vs_solo": err_solo, "max_abs_err_vs_eager": err_eager,
+          "eager_tier_warm_wall_s": eager_warm_s, "tol": TOL_PATH, "ok": True})
+
+    # (c) restart: a revived engine on the same store
+    revived = engine(params, store=ProgramStore(store_dir / "serve"))
+    rep = revived.precompile()
+    check(rep.n_searches == 0 and rep.n_store_hits == rep.n_shapes,
+          f"precompile: {rep.as_dict()}")
+    tc0 = repro_torch.trace_count()
+    res_c, _ = count(lambda: revived.submit(reqs))
+    check(repro_torch.trace_count() == tc0, "the revived engine built on the request path")
+    check(revived.stats().n_searches == 0, "the revived engine ran the mapper")
+    served_ok(res_c, revived, "engine restart")
+    same_outputs(res_c, first, "restart")
+    emit({"phase": "engine", "part": "restart", "precompile": rep.as_dict(),
+          "request_path_builds": 0, "mapper_searches": 0,
+          "store_hits": revived.stats().store_hits, "bit_identical": True, "ok": True})
+
+    # (b) chaos: seeded faults and a kernel-backend outage
+    # a seeded background mix, plus one sticky kernel fault (its batch
+    # fails on every tier, then runs solo: rid 5 fails alone), one transient
+    # NaN (served one tier down) and one latency spike
+    inj = FaultInjector(seed=5, p_exception=0.1, p_nan=0.05, p_latency=0.05,
+                        latency_s=0.02, rules=[
+                            FaultRule(kind="exception", rid=5),
+                            FaultRule(kind="nan", rid=9, max_fires=1),
+                            FaultRule(kind="latency", batch_index=0, max_fires=1)])
+    chaos = engine(params, fault_injector=inj, retry=RetryPolicy(max_retries=0))
+    half = n_requests // 2
+    res_b = chaos.submit(reqs[:half])
+    with kill_pallas():
+        res_b += chaos.submit(reqs[half:])
+    by_status = {}
+    for r, ref in zip(res_b, first):
+        by_status[r.status] = by_status.get(r.status, 0) + 1
+        if r.status == "ok":
+            check(r.tier == "pallas+searched" and np.array_equal(r.output, ref.output),
+                  f"chaos: ok rid {r.rid} differs from the healthy run")
+        elif r.status == "degraded":
+            check(r.tier != "pallas+searched", f"chaos: rid {r.rid} degraded on the top tier")
+            np.testing.assert_allclose(r.output, ref.output, **TOL_PATH)
+        else:
+            check(r.status == "failed" and r.error_type in (
+                "kernel_fault", "numerical_fault"), f"chaos: rid {r.rid}: {r.status} "
+                  f"{r.error_type}")
+    st = chaos.stats()
+    faults = inj.counts()
+    check(faults.get("exception", 0) > 0 and faults.get("nan", 0) > 0,
+          f"chaos: the injector fired {faults}")
+    check(res_b[5].status == "failed" and res_b[5].error_type == "kernel_fault",
+          f"chaos: the poisoned rid 5 ended {res_b[5].status}")
+    check(st.n_degraded + st.n_failed > 0 and st.n_downgrades > 0,
+          f"chaos: no fault landed as a non-ok status ({st.as_dict()})")
+    emit({"phase": "engine", "part": "chaos", "injected": faults,
+          "statuses": by_status, "errors": st.errors, "downgrades": st.n_downgrades,
+          "retries": st.n_retries, "solo_retries": st.n_solo_retries,
+          "stragglers": st.n_stragglers, "ok_bit_identical_to_serve": True, "ok": True})
+
+    # (d) giant: cora partitioned into row_stream closures
+    cora, _ = load_dataset("cora")
+    gdims = [(1433, 16), (16, 8)]
+    hw = dataclasses.replace(DEFAULT_ACCEL, gb_capacity_bytes=None)
+    gpol = BucketPolicy(max_nodes=1024)
+    x = np.random.default_rng(44).normal(size=(cora.n_nodes, 1433)).astype(np.float32)
+    gplan = plan_partition(cora, gdims, hw, objective="edp", allow_monolithic=False,
+                           max_block_rows=gpol.max_nodes)
+    giant_rec = {"phase": "engine", "part": "giant", "graph": "cora", "dims": gdims,
+                 "plan": gplan.kind, "block_rows": gplan.block_rows,
+                 "candidates": [c.as_dict() for c in gplan.candidates]}
+    gparams = None
+    for policy, order, kernels in (("sp_opt", "AC", ("fused_agg_cmb",)),
+                                   ("seq", "CA", ("spmm", "gemm_dataflow"))):
+        sched = ModelSchedule.from_policies(policy, order, gdims)
+        giant = InferenceEngine(gdims, gparams, use_pallas=True, readout=None,
+                                schedule=sched, hw=hw, objective="edp", policy=gpol,
+                                partition_oversized=True, device=dev)
+        if gparams is None:
+            gparams = giant.init(torch.Generator().manual_seed(4))
+        (res,), counts = count(lambda: giant.submit([Request(graph=cora, x=x)]))
+        check(res.status == "ok" and res.tier == "pallas+searched" and
+              res.plan == "row_stream" and res.n_partitions > 1,
+              f"giant {policy}/{order}: {res.status} {res.tier} {res.plan} {res.error}")
+        check(giant.stats().n_downgrades == 0, "giant: downgraded")
+        mono = repro_torch.compile(
+            GNNConfig("gcn", 1433, 16, 8, use_pallas=True), graph=cora,
+            schedule=sched, device=dev).run(gparams, x).cpu().numpy()
+        same = bool(np.array_equal(res.output, mono))
+        giant_rec[f"{policy}/{order}"] = {
+            "n_partitions": res.n_partitions, "partition_wall_s": res.partition_wall_s,
+            "bit_identical_to_monolithic": same,
+            "max_abs_diff": float(np.abs(res.output - mono).max()), "launches": counts}
+        np.testing.assert_allclose(res.output, mono, **TOL_PATH)
+        for k in kernels:
+            check(counts[k] > 0, f"giant {policy}/{order}: {k} never launched {counts}")
+        check(same, f"giant {policy}/{order}: the partitioned output is not "
+                    "bit-identical to the monolithic kernel-tier forward")
+    w0 = torch.empty((1433, 16), device=dev)
+    x0 = torch.empty((1, 1433), device=dev)
+    giant_rec["fused_rows_per_cta_l0"] = {
+        f"v_pad {v}": fused_plan(torch.empty((v, 72), dtype=torch.int32, device=dev), x0,
+                                 w0)["rows"] for v in (2708, 4096)}
+    emit({**giant_rec, "ok": True})
+
+    # (e) calibrate on the card; an engine on the store resolves the model
+    cal_store = ProgramStore(store_dir / "cal")
+    fit = calibrate(store=cal_store, fast=True, use_pallas=True, device=dev,
+                    warmup=1, iters=6)
+    fp = backend_fingerprint(dev)
+    check(fit.model.backend == fp and cal_store.load_latency_model(fp) == fit.model,
+          f"calibrate stored {fit.model.backend!r}, not under {fp!r}")
+    ce = engine(params, store=ProgramStore(store_dir / "cal"))
+    check(ce.hw.latency == fit.model, "the engine did not resolve the fitted model")
+    few = reqs[:16]
+    ce.submit(few)
+    ce.submit(few)
+    rr = ce.rerank_topk(top_k=2, max_shapes=2, warmup=1, iters=3)
+    tc0 = repro_torch.trace_count()
+    res_e = ce.submit(few)
+    check(repro_torch.trace_count() == tc0, "rerank left builds on the request path")
+    served_ok(res_e, ce, "engine after rerank")
+    emit({"phase": "engine", "part": "calibrate", "backend": fp,
+          "points": fit.n_points, "fit_error_median": fit.error_median,
+          "fit_error_max": fit.error_max, "bw_mult": fit.bw_mult,
+          "residuals": list(fit.errors), "per_family": fit.per_family,
+          "model": dataclasses.asdict(fit.model), "rerank": rr.as_dict(),
+          "request_path_builds_after_rerank": 0, "ok": True})
+    shutil.rmtree(store_dir, ignore_errors=True)
+    print(f"engine phase wall {time.perf_counter() - t_phase:.3f} s", flush=True)
     return launches
 
 
@@ -875,7 +1144,7 @@ def main() -> int:
     numbers = phase_kernels(dev, flush)
     numbers.update(phase_lm_kernels(dev, flush))
     launches = phase_main(dev, counters)
-    for phase in (phase_serving, phase_gemm, phase_lm_serve):
+    for phase in (phase_serving, phase_engine, phase_gemm, phase_lm_serve):
         for k, n in phase(dev, counters).items():
             launches[k] += n
     for k, n in launches.items():

@@ -42,7 +42,7 @@ import torch
 from .core.cost_model import GNNLayerWorkload
 from .core.hw import AcceleratorConfig, DEFAULT_ACCEL, HWGrid, LatencyModel
 from .core.mapper import TABLE5_NAMES, search_model, search_model_codesign
-from .core.registry import get_objective
+from .core.registry import get_objective, lookup_kernel
 from .core.schedule import ModelSchedule, TransitionSpec
 from .core.simulator import (
     ModelStats,
@@ -60,7 +60,7 @@ from .graphs.csr import CSRGraph
 #: changed schedule encoding, ...).  ``Program.from_json`` rejects any
 #: other format string with a ``ValueError`` — deliberately, so a loader
 #: can *choose* its forward-compat policy: direct callers see the error,
-#: while :class:`repro.runtime.store.ProgramStore` treats it as a cache
+#: while :class:`repro_torch.runtime.store.ProgramStore` treats it as a cache
 #: miss and recompiles, which is how a version bump invalidates every
 #: persisted store entry without ever crashing a serving process.
 PROGRAM_FORMAT = "repro.program/v1"
@@ -251,24 +251,28 @@ class Program:
             for fi, fo in self.dims
         ]
 
-    def _executable(self, key: tuple, n_nodes: int, mesh, readout, num_segments):
-        """The forward for one shape key, built on first use (counted by
-        :func:`trace_count`); later same-key runs reuse it."""
-        exe = self._exec_cache.get(key)
-        if exe is None:
-            _note_trace()
-            kind, specs = self.kind, self.specs
+    def _build(self, n_nodes: int, mesh, readout, num_segments):
+        """A forward for one shape key (counted by :func:`trace_count`).
+        It resolves each layer's registry kernel now, once: a kernel hook
+        pushed later (:func:`repro_torch.runtime.faults.kill_pallas`)
+        reaches only executables built after it, as a backend outage
+        reaches only the reference's executables traced after it."""
+        _note_trace()
+        kind, specs = self.kind, self.specs
+        kernels = [
+            lookup_kernel(s.policy, s.order, s.use_pallas) for s in specs
+        ]
 
-            def exe(params, indices, weights, x, segment_ids):
-                adj = EllAdjacency(indices, weights, n_nodes)
-                return forward_layers(
-                    kind, params, adj, x, specs, mesh=mesh,
-                    segment_ids=segment_ids if readout is not None else None,
-                    num_segments=num_segments,
-                    readout=readout or "mean",
-                )
+        def exe(params, indices, weights, x, segment_ids):
+            adj = EllAdjacency(indices, weights, n_nodes)
+            return forward_layers(
+                kind, params, adj, x, specs, mesh=mesh,
+                segment_ids=segment_ids if readout is not None else None,
+                num_segments=num_segments,
+                readout=readout or "mean",
+                kernels=kernels,
+            )
 
-            self._exec_cache[key] = exe
         return exe
 
     def run(
@@ -280,6 +284,7 @@ class Program:
         segment_ids=None,
         num_segments: int | None = None,
         readout: str | None = None,
+        donate: bool = False,
     ) -> torch.Tensor:
         """Forward pass under the compiled schedule.
 
@@ -294,7 +299,18 @@ class Program:
         graph's device); a tensor, parameters included, must already be on
         that device.  Executables are cached per shape key: the
         second call on a same-shape input (including a same-shape
-        :meth:`bind`) builds nothing (see :func:`trace_count`).
+        :meth:`bind`) builds nothing (see :func:`trace_count`).  An
+        executable whose first run raises is not kept (the reference keeps
+        no executable for a failed trace): the next run builds it again.
+
+        ``donate`` gives the feature tensor ``x`` to the run, as the
+        reference donates the feature buffer: once the forward is
+        dispatched its storage is released to the allocator (the next
+        batch's staging can reuse the block), and ``x`` must not be used
+        again.  It must be a tensor that owns its whole storage, else the
+        run raises ``ValueError``; a numpy ``x`` is copied, so donating it
+        releases only that copy.  ``donate`` is part of the executable's
+        key, as in the reference.
         """
         adj = self._require_adj()
         dev = adj.indices.device
@@ -310,7 +326,18 @@ class Program:
             raise ValueError(
                 "num_segments/readout need segment_ids (a batched graph)"
             )
+        given = x
         x = on_device(x, dev, "x")
+        if donate and isinstance(given, torch.Tensor):
+            st = x.untyped_storage()
+            if (
+                not st.resizable() or x.storage_offset() != 0
+                or st.nbytes() != x.numel() * x.element_size()
+            ):
+                raise ValueError(
+                    "donate=True needs x to own its whole storage (not a "
+                    "view, not memory shared with numpy)"
+                )
         for i, layer in enumerate(params):
             for k, v in layer.items():
                 on_device(v, dev, f"params[{i}][{k!r}]")
@@ -318,15 +345,24 @@ class Program:
             segment_ids = on_device(segment_ids, dev, "segment_ids")
         readout = (readout or "mean") if batched else None
         key = (
-            adj.n_nodes, None if mesh is None else tuple(mesh), readout,
-            num_segments, tuple(adj.indices.shape), tuple(x.shape), x.dtype,
+            adj.n_nodes, None if mesh is None else tuple(mesh), bool(donate),
+            readout, num_segments, tuple(adj.indices.shape), tuple(x.shape),
+            x.dtype,
             tuple(
                 (k, tuple(v.shape), v.dtype)
                 for layer in params for k, v in sorted(layer.items())
             ),
         )
-        exe = self._executable(key, adj.n_nodes, mesh, readout, num_segments)
-        return exe(params, adj.indices, adj.weights, x, segment_ids)
+        exe = self._exec_cache.get(key)
+        fresh = exe is None
+        if fresh:
+            exe = self._build(adj.n_nodes, mesh, readout, num_segments)
+        out = exe(params, adj.indices, adj.weights, x, segment_ids)
+        if fresh:  # kept only once it has run
+            self._exec_cache[key] = exe
+        if donate:
+            x.untyped_storage().resize_(0)
+        return out
 
     def prime(
         self,
@@ -336,12 +372,14 @@ class Program:
         segment_ids=None,
         num_segments: int | None = None,
         readout: str | None = None,
+        donate: bool = False,
     ) -> int:
         """Warm the executable cache for one input shape, off the request
         path: runs :meth:`run` on a zeros feature array of the bound
-        graph's shape (same static knobs, so the executable is the exact
-        one a later same-shape request will hit) and returns how many new
-        executables it built — 0 when the shape was already warm.
+        graph's shape (same static knobs, ``donate`` included, so the
+        executable is the exact one a later same-shape request will hit)
+        and returns how many new executables it built — 0 when the shape
+        was already warm.
         """
         adj = self._require_adj()
         x = torch.zeros(
@@ -356,9 +394,10 @@ class Program:
             segment_ids=segment_ids,
             num_segments=num_segments,
             readout=readout,
+            donate=donate,
         )
-        if x.device.type == "cuda":
-            torch.cuda.synchronize(x.device)
+        if adj.indices.device.type == "cuda":
+            torch.cuda.synchronize(adj.indices.device)
         return _TRACE_COUNT - before
 
     def loss(self, params, x, labels, mask, mesh=None):

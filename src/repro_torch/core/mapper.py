@@ -529,6 +529,29 @@ def search_dataflows(
     return out
 
 
+def search_execution_plans(
+    g,
+    dims,
+    hw: AcceleratorConfig = DEFAULT_ACCEL,
+    objective: str = "edp",
+    **kwargs,
+):
+    """Rank whole-graph execution plans — monolithic vs partitioned.
+
+    Extends :func:`search_dataflows` above the single-layer level: each
+    candidate's per-layer compute is priced by ``search_dataflows`` and
+    its inter-partition traffic by
+    :func:`repro_torch.core.simulator.partition_comm_cost`, so
+    beyond-capacity graphs can be ranked against (spill-priced) monolithic
+    execution on the same objective scale.  Returns a
+    :class:`repro_torch.graphs.partition.PartitionPlan`; see
+    :func:`repro_torch.graphs.partition.plan_partition` for the knobs.
+    """
+    from ..graphs.partition import plan_partition  # local: graphs imports core
+
+    return plan_partition(g, dims, hw, objective=objective, **kwargs)
+
+
 # ---------------------------------------------------------------------------
 # Model-level search: DP over per-layer candidates with transition costs
 # ---------------------------------------------------------------------------

@@ -122,11 +122,12 @@ _KERNELS: dict[tuple[str, str, bool], Callable] = {}
 #: dispatch wrappers applied (in push order) to every kernel resolved by
 #: :func:`lookup_kernel`.  A hook is ``fn(requested_key, impl) -> impl``:
 #: it sees the *requested* ``(policy, order, use_pallas)`` key — even when
-#: the Pallas->jnp fallback resolved a different entry — and may return a
+#: the kernel->eager fallback resolved a different entry — and may return a
 #: substitute.  This is the seam the fault-injection harness
-#: (:mod:`repro.runtime.faults`) uses to simulate an execution backend
-#: going down; hooks fire at dispatch (trace) time, so already-jitted
-#: executables are unaffected, exactly like a live backend outage.
+#: (:mod:`repro_torch.runtime.faults`) uses to simulate an execution
+#: backend going down; hooks fire at lookup, which a Program does once per
+#: executable it builds, so already-built executables are unaffected,
+#: exactly like a live backend outage.
 _KERNEL_HOOKS: list[Callable] = []
 
 ORDERS = ("AC", "CA")

@@ -23,8 +23,12 @@ A·(X·W) — same result, different cost (paper Sec. 3.3).
 Each executable path registers itself in the kernel registry
 (:mod:`repro_torch.core.registry`) keyed by the ExecSpec fields
 ``(policy, order, use_pallas)``; ``use_pallas`` keeps the reference's key
-and means "the hand-written kernel tier".  Plain products outside a kernel
-stay ``torch.matmul`` in full float32 (the package turns TF32 off).
+and means "the hand-written kernel tier".  Dense products give each row a
+result that does not depend on the call's row count, so a row partition
+and the whole graph agree bit for bit: on the kernel tier they run the
+``gemm_dataflow`` kernel (:func:`kernel_matmul`), on the eager tier
+:func:`repro_torch.kernels.common.row_matmul` (fixed row tiles, full
+float32: the package turns TF32 off).
 """
 from __future__ import annotations
 
@@ -38,7 +42,9 @@ from ..core.registry import lookup_kernel, register_kernel
 from ..core.schedule import ExecSpec
 from ..device import resolve_device
 from ..graphs.csr import CSRGraph
+from ..kernels.common import row_matmul
 from ..kernels.fused_agg_cmb.ops import fused_agg_cmb
+from ..kernels.gemm_dataflow.ops import gemm
 from ..kernels.spmm.ops import spmm
 
 POLICIES = ("seq", "sp_generic", "sp_opt", "pp")
@@ -97,11 +103,28 @@ class EllAdjacency:
 def aggregate_band(
     indices: torch.Tensor, weights: torch.Tensor, x: torch.Tensor
 ) -> torch.Tensor:
-    """Aggregation for one row band: indices/weights (B, D)."""
+    """Aggregation for one row band: indices/weights (B, D).
+
+    Each row sums its D weighted slots over a pairwise tree: the slots
+    zero-padded to a power of two, then the upper half added onto the
+    lower half until one is left.  Every step is an elementwise op, so a
+    row's sum does not depend on the band's row count (a batched product
+    may pick its reduction from it); and zero slots past a row's last
+    real one only add exact zeros, so the sum does not depend on D either.
+    """
     b, d = indices.shape
-    gathered = x.index_select(0, indices.reshape(-1)).reshape(b, d, x.shape[1])
     dt = torch.promote_types(weights.dtype, x.dtype)
-    return torch.einsum("bd,bdf->bf", weights.to(dt), gathered.to(dt))
+    width = 1 << max(d - 1, 0).bit_length()
+    terms = torch.zeros((b, width, x.shape[1]), dtype=dt, device=x.device)
+    torch.mul(
+        weights.to(dt)[:, :, None],
+        x.index_select(0, indices.reshape(-1)).reshape(b, d, x.shape[1]).to(dt),
+        out=terms[:, :d],
+    )
+    while width > 1:
+        width //= 2
+        terms[:, :width] += terms[:, width:2 * width]
+    return terms[:, 0]
 
 
 def aggregate_full(adj: EllAdjacency, x: torch.Tensor) -> torch.Tensor:
@@ -133,19 +156,37 @@ def _band_scan(
 @register_kernel("seq", orders=("AC",))
 def _seq_ac(adj, x, w, spec, mesh):
     """Seq/AC: materialize the full aggregated intermediate, then GEMM."""
-    return (aggregate_full(adj, x) @ w)[: adj.n_nodes]
+    return row_matmul(aggregate_full(adj, x), w)[: adj.n_nodes]
 
 
 @register_kernel("seq", orders=("CA",))
 def _seq_ca(adj, x, w, spec, mesh):
     """Seq/CA: dense GEMM first, then whole-graph aggregation."""
-    return aggregate_full(adj, x @ w)[: adj.n_nodes]
+    return aggregate_full(adj, row_matmul(x, w))[: adj.n_nodes]
+
+
+def kernel_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The kernel tier's dense product: the hand-written ``gemm_dataflow``
+    kernel (output-stationary, one launch), whose float32 route sums each
+    output over F in an order set by F and G alone; on a CPU tensor its
+    plain version, :func:`~repro_torch.kernels.common.row_matmul`.  Either
+    way a row's result does not depend on the call's row count."""
+    return gemm(x.contiguous(), w.contiguous())
+
+
+def _tier_matmul(kw) -> Callable:
+    """The dense product of a layer's tier, for the products outside the
+    registered kernels (SAGE / GIN self terms, GIN's second product)."""
+    spec = kw.get("spec")
+    on_kernels = spec.use_pallas if spec is not None else bool(kw.get("use_pallas"))
+    return kernel_matmul if on_kernels else row_matmul
 
 
 @register_kernel("seq", pallas=(True,))
 def _seq_kernel(adj, x, w, spec, mesh):
-    """Seq with the aggregation routed through the CUDA ELL SpMM."""
-    feats = x @ w if spec.order == "CA" else x
+    """Seq on the card's kernels: the aggregation through the CUDA ELL
+    SpMM, the combination through the ``gemm_dataflow`` kernel."""
+    feats = kernel_matmul(x, w) if spec.order == "CA" else x
     h = spmm(
         adj.indices,
         adj.weights,
@@ -155,7 +196,7 @@ def _seq_kernel(adj, x, w, spec, mesh):
     )
     if spec.order == "CA":
         return h[: adj.n_nodes]
-    return (h @ w)[: adj.n_nodes]
+    return kernel_matmul(h, w)[: adj.n_nodes]
 
 
 @register_kernel("sp_generic", orders=("AC",))
@@ -164,14 +205,18 @@ def _sp_ac(adj, x, w, spec, mesh):
     """SP/AC band loop: each band's intermediate lives inside one step and
     is consumed at once as the GEMM operand — the eager body of both
     SP-Generic and SP-Optimized."""
-    return _band_scan(adj, x, lambda h: h @ w, spec.band_size)[: adj.n_nodes]
+    return _band_scan(
+        adj, x, lambda h: row_matmul(h, w), spec.band_size
+    )[: adj.n_nodes]
 
 
 @register_kernel("sp_generic", orders=("CA",))
 @register_kernel("sp_opt", orders=("CA",))
 def _sp_ca(adj, x, w, spec, mesh):
     """SP/CA: aggregate the combined features band by band."""
-    return _band_scan(adj, x @ w, lambda h: h, spec.band_size)[: adj.n_nodes]
+    return _band_scan(
+        adj, row_matmul(x, w), lambda h: h, spec.band_size
+    )[: adj.n_nodes]
 
 
 @register_kernel("sp_opt", orders=("AC",), pallas=(True,))
@@ -215,6 +260,7 @@ def multiphase_matmul(
     mesh=None,
     block_f: int | None = None,
     spec: ExecSpec | None = None,
+    kernel: Callable | None = None,
 ) -> torch.Tensor:
     """Execute aggregation + combination under an inter-phase policy.
 
@@ -227,6 +273,9 @@ def multiphase_matmul(
     :class:`ValueError` rather than being silently ignored.  Without a
     spec, the string knobs build one (defaults: ``sp_opt`` / ``AC`` /
     band 128), so both entry styles dispatch through the same registry.
+    ``kernel`` is the registry entry already resolved for ``spec`` (a
+    :class:`~repro_torch.api.Program` resolves its kernels once, when it
+    builds an executable); without it the registry is consulted here.
     """
     if spec is not None:
         given = dict(
@@ -256,7 +305,8 @@ def multiphase_matmul(
             block_f=block_f,
             use_pallas=bool(use_pallas),
         )
-    kernel = lookup_kernel(spec.policy, spec.order, spec.use_pallas)
+    if kernel is None:
+        kernel = lookup_kernel(spec.policy, spec.order, spec.use_pallas)
     return kernel(adj, x, w, spec, mesh)
 
 
@@ -265,6 +315,34 @@ def multiphase_matmul(
 # ---------------------------------------------------------------------------
 
 READOUTS = ("sum", "mean", "max")
+
+
+def _segment_sum(h, ids, valid, num_segments: int) -> torch.Tensor:
+    """Per-segment sums of the valid rows of ``h``, each over a pairwise
+    tree of its own rows in row order, zero-padded to a power of two.
+
+    Padding a segment's rows with zeros to a longer power of two only adds
+    exact ``+ 0`` steps at the top of its tree, so a segment's sum depends
+    on its own rows alone: not on the other segments, the batch's row
+    count or where the segment sits in it.  (``index_add_`` on the card
+    sums with atomics, in an order that changes from run to run.)  Every
+    step is an elementwise add, deterministic on any device.
+    """
+    f = h.shape[1]
+    rows = torch.nonzero(valid).flatten()
+    seg = ids[rows]
+    order = torch.sort(seg, stable=True).indices
+    rows, seg = rows[order], seg[order]
+    counts = torch.bincount(seg, minlength=num_segments)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(rows.numel(), device=h.device) - starts[seg]
+    width = 1 << max(int(counts.max().item()) - 1, 0).bit_length() \
+        if rows.numel() else 1
+    tree = torch.zeros((num_segments, width, f), dtype=h.dtype, device=h.device)
+    tree[seg, pos] = h[rows]
+    while tree.shape[1] > 1:
+        tree = tree[:, 0::2] + tree[:, 1::2]
+    return tree[:, 0]
 
 
 def segment_readout(
@@ -281,7 +359,9 @@ def segment_readout(
     ``num_segments`` (out of range): they are masked out explicitly here,
     since ``index_add_`` / ``scatter_reduce`` raise on that id.  An empty
     segment reads 0 for ``sum`` and ``mean`` and -inf for ``max``, as in
-    the reference.
+    the reference.  Sums are taken by :func:`_segment_sum`, in an order
+    set by each segment's own rows alone (no atomics), so a graph's
+    readout is the same bits whatever it is batched with.
     """
     if reduce not in READOUTS:
         raise ValueError(
@@ -303,9 +383,7 @@ def segment_readout(
             0, safe[:, None].expand(n, f), src, reduce="amax",
             include_self=True,
         )
-    src = torch.where(valid[:, None], h, 0.0)
-    s = torch.zeros((num_segments, f), dtype=h.dtype, device=h.device)
-    s.index_add_(0, safe, src)
+    s = _segment_sum(h, ids, valid, num_segments)
     if reduce == "sum":
         return s
     counts = torch.zeros(num_segments, dtype=h.dtype, device=h.device)
@@ -332,7 +410,7 @@ def sage_layer(params, adj, x, *, policy=None, order=None, **kw):
     The GEMM-first form keeps X @ W_top independent of aggregation — the
     extra scheduling freedom the paper highlights.
     """
-    self_term = x[: adj.n_nodes] @ params["w_top"]
+    self_term = _tier_matmul(kw)(x[: adj.n_nodes], params["w_top"])
     agg_term = multiphase_matmul(
         adj, x, params["w_bottom"], policy=policy, order=order, **kw
     )
@@ -350,9 +428,10 @@ def gin_layer(params, adj, x, *, policy=None, order=None, **kw):
         adj.indices, (adj.weights > 0).to(torch.float32), adj.n_nodes
     )
     agg = multiphase_matmul(unit_adj, x, params["w1"], policy=policy, order=order, **kw)
-    self_term = (1.0 + eps) * x[: adj.n_nodes] @ params["w1"]
+    matmul = _tier_matmul(kw)
+    self_term = matmul((1.0 + eps) * x[: adj.n_nodes], params["w1"])
     h = torch.relu(agg + self_term + params["b1"])
-    return torch.relu(h @ params["w2"] + params["b2"])
+    return torch.relu(matmul(h, params["w2"]) + params["b2"])
 
 
 LAYER_FNS = {"gcn": gcn_layer, "sage": sage_layer, "gin": gin_layer}

@@ -81,7 +81,7 @@ def init_gnn(cfg: GNNConfig, generator: torch.Generator, device=None):
 
 def forward_layers(kind: str, params, adj: EllAdjacency, x: torch.Tensor,
                    specs, mesh=None, segment_ids=None, num_segments=None,
-                   readout: str = "mean") -> torch.Tensor:
+                   readout: str = "mean", kernels=None) -> torch.Tensor:
     """Run the layer stack under per-layer ExecSpecs (the single forward
     loop shared by ``gnn_forward`` and ``repro_torch.api.Program.run``).
 
@@ -90,11 +90,15 @@ def forward_layers(kind: str, params, adj: EllAdjacency, x: torch.Tensor,
     are reduced per member graph with
     :func:`repro_torch.gnn.layers.segment_readout` and the result is
     (num_segments, f_out) — per-graph outputs, not one fused logit matrix.
+
+    ``kernels`` (one resolved registry entry per layer) skips the registry
+    lookup, so an executable keeps the kernels it was built with.
     """
     fn = LAYER_FNS[kind]
     h = x
-    for layer, spec in zip(params, specs):
-        h = fn(layer, adj, h, spec=spec, mesh=mesh)
+    for i, (layer, spec) in enumerate(zip(params, specs)):
+        kw = {} if kernels is None else {"kernel": kernels[i]}
+        h = fn(layer, adj, h, spec=spec, mesh=mesh, **kw)
     if segment_ids is not None:
         if num_segments is None:
             raise ValueError("segment_ids needs num_segments")

@@ -10,3 +10,10 @@ from .batching import (
     next_pow2,
 )
 from .datasets import TABLE4, DatasetSpec, load_dataset, all_datasets, sample_graphs
+from .partition import (
+    Partition,
+    PartitionPlan,
+    PlanCandidate,
+    extract_row_partitions,
+    plan_partition,
+)

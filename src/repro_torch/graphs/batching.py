@@ -14,9 +14,10 @@ between the two facts:
   batch with isolated self-loop nodes up to the bucket shape and carries
   per-graph **segment ids**, so node features, labels, and per-graph
   readout survive batching (pad rows get segment id ``n_graphs``, which
-  JAX segment ops drop as out-of-range).
+  :func:`repro_torch.gnn.layers.segment_readout` masks out as
+  out-of-range).
 
-The serving loop on top lives in :mod:`repro.runtime.engine`.
+The serving loop on top lives in :mod:`repro_torch.runtime.engine`.
 """
 from __future__ import annotations
 
@@ -281,10 +282,11 @@ class TrafficProfile:
       ran at each padded slot count.  The executable shape depends on
       ``(v_bucket * slots, d_bucket)``, so these triples are exactly the
       shapes a revived engine must warm to serve its first request
-      trace-free (:meth:`~repro.runtime.engine.InferenceEngine.precompile`).
+      build-free
+      (:meth:`~repro_torch.runtime.engine.InferenceEngine.precompile`).
 
     The profile is serialized alongside the program store
-    (:meth:`repro.runtime.store.ProgramStore.save_profile`) so bucket heat
+    (:meth:`repro_torch.runtime.store.ProgramStore.save_profile`) so bucket heat
     survives the process; :meth:`merge` folds one life's traffic into the
     last one's.
     """

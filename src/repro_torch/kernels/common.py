@@ -1,12 +1,14 @@
-"""Shared kernel utilities: ``cdiv``, ``measure_wall`` and the CUDA build.
+"""Shared kernel utilities: ``cdiv``, ``measure_wall``, ``row_matmul`` and
+the CUDA build.
 
 Every hand-written kernel of this package is one ``.cu`` file beside its
 ``ops.py`` with a plain C interface.  :class:`CudaLibrary` compiles it with
 ``nvcc`` for ``sm_90a`` into a shared library under ``<repo>/build/kernels``
-at first use, keyed by a hash of the source, the local headers it
-includes and the flags, and loads it
-with :mod:`ctypes`.  Nothing is built or loaded when a module is imported:
-the CPU tests import every module, and the CPU has no ``nvcc``.
+(or the directory :func:`set_build_dir` names) at first use, keyed by a
+hash of the source, the local headers it includes and the flags, and loads
+it with :mod:`ctypes`.  Nothing is built or loaded when a module is imported:
+the CPU tests import every module, and the CPU has no ``nvcc``.  A kernel
+that cannot be built, loaded or launched raises :class:`CudaKernelError`.
 """
 from __future__ import annotations
 
@@ -22,8 +24,28 @@ from pathlib import Path
 import numpy as np
 import torch
 
-#: where built libraries land (listed in .gitignore).
+#: where built libraries land (listed in .gitignore); see set_build_dir.
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+
+#: environment override of the build directory (see set_build_dir).
+BUILD_DIR_ENV = "REPRO_TORCH_KERNEL_DIR"
+
+
+def set_build_dir(path=None) -> Path:
+    """Point the kernel builds at ``path`` (made if missing) and return it:
+    an explicit ``path``, else the ``REPRO_TORCH_KERNEL_DIR`` environment
+    variable, else the checkout's ``build/kernels``.  A library already
+    built there is loaded, not rebuilt (the file name is the hash of its
+    sources and flags), so a persistent directory saves a restarted
+    process its ``nvcc`` runs.  Libraries already loaded stay loaded."""
+    global BUILD_DIR
+    chosen = path or os.environ.get(BUILD_DIR_ENV)
+    BUILD_DIR = (
+        Path(chosen).expanduser() if chosen
+        else Path(__file__).resolve().parents[3] / "build" / "kernels"
+    )
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    return BUILD_DIR
 
 #: the ``dtype`` argument of every kernel's C entry point (x, w and out).
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -39,8 +61,51 @@ NVCC_FLAGS = (
 _LOCAL_INCLUDE = re.compile(r'\s*#\s*include\s+"([^"]+)"')
 
 
+class CudaKernelError(RuntimeError):
+    """A hand-written CUDA kernel failed to build (``nvcc`` missing or
+    refusing the source), to load, or to launch.  It is a fault of the
+    program, not of a request: callers let it propagate (the serving
+    engine's degradation ladder re-raises it rather than serve the eager
+    tier in the kernel's place)."""
+
+
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+#: rows per product tile of :func:`row_matmul`.
+ROW_TILE = 128
+
+
+def row_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` computed over fixed tiles of ``ROW_TILE`` rows, the last
+    one zero-padded, so that each row's result does not depend on how many
+    rows the call has.
+
+    A plain ``torch.matmul`` lets the library pick its blocking (and, on
+    the card, its split of the reduction) from the row count, so a row of a
+    2,708-row product may differ in its last bits from the same row of a
+    96-row product.  Every tile here is one ``(ROW_TILE, F) @ (F, G)``
+    call, the same shape whatever the caller's row count, and a row's sum
+    order does not depend on its place in the tile: partitioned and
+    monolithic forwards then agree bit for bit, as the reference promises.
+    It is one library call a tile, so it is host-bound on the card: the
+    eager tier uses it; the kernel tier's products run the
+    ``gemm_dataflow`` kernel, one launch.
+    """
+    tile = ROW_TILE
+    dt = torch.promote_types(x.dtype, w.dtype)
+    x, w = x.to(dt), w.to(dt)
+    n = x.shape[0]
+    out = torch.empty((n, w.shape[1]), dtype=dt, device=x.device)
+    whole = n - n % tile
+    for s in range(0, whole, tile):
+        torch.mm(x[s:s + tile], w, out=out[s:s + tile])
+    if whole < n:
+        pad = torch.zeros((tile, x.shape[1]), dtype=dt, device=x.device)
+        pad[: n - whole] = x[whole:]
+        out[whole:] = torch.mm(pad, w)[: n - whole]
+    return out
 
 
 def measure_wall(
@@ -86,7 +151,7 @@ def _nvcc() -> str:
         return found
     if CUDA_HOME and Path(CUDA_HOME, "bin", "nvcc").exists():
         return str(Path(CUDA_HOME, "bin", "nvcc"))
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    raise CudaKernelError("nvcc not found: the CUDA kernels cannot be built")
 
 
 class CudaLibrary:
@@ -153,7 +218,7 @@ class CudaLibrary:
         tmp = proc.tmp_path  # type: ignore[attr-defined]
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(
+            raise CudaKernelError(
                 f"nvcc failed on {self.source.name} (exit {proc.returncode}):\n"
                 f"{out}"
             )
@@ -164,12 +229,15 @@ class CudaLibrary:
         """The loaded library, built first if it is missing."""
         if self._lib is None:
             self.finish_build(self.start_build())
-            lib = ctypes.CDLL(str(self.so_path()))
-            for fn, argtypes in self.functions.items():
-                f = getattr(lib, fn)
-                f.argtypes = argtypes
-                f.restype = ctypes.c_int
-            err = getattr(lib, f"{self.name}_error_string")
+            try:
+                lib = ctypes.CDLL(str(self.so_path()))
+                for fn, argtypes in self.functions.items():
+                    f = getattr(lib, fn)
+                    f.argtypes = argtypes
+                    f.restype = ctypes.c_int
+                err = getattr(lib, f"{self.name}_error_string")
+            except (OSError, AttributeError) as e:
+                raise CudaKernelError(f"cannot load {self.so_path().name}: {e}") from e
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
             self._lib = lib
@@ -179,14 +247,18 @@ class CudaLibrary:
         """Raise when a launch returned a CUDA error."""
         if code != 0:
             msg = getattr(self.load(), f"{self.name}_error_string")(code).decode()
-            raise RuntimeError(f"{what} failed: CUDA error {code} ({msg})")
+            raise CudaKernelError(f"{what} failed: CUDA error {code} ({msg})")
 
 
 def build_libraries(libs) -> float:
     """Build every library that is missing, all ``nvcc`` processes started
-    together; returns the seconds taken."""
+    together (one for each distinct build); returns the seconds taken."""
     t0 = time.perf_counter()
-    procs = [(lib, lib.start_build()) for lib in libs]
+    procs, started = [], set()
+    for lib in libs:  # two libraries of the same sources build once
+        so = lib.so_path()
+        procs.append((lib, None if so in started else lib.start_build()))
+        started.add(so)
     for lib, proc in procs:
         lib.finish_build(proc)
     return time.perf_counter() - t0

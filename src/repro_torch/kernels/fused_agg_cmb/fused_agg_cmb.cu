@@ -44,18 +44,25 @@
 //     bfloat16 through registers), double-buffered: chunk c + 1's w is in
 //     flight during chunk c's gathers.
 //   * Combination on CUDA cores in float32 (single-pass TF32 would miss the
-//     2e-4 tolerance): each thread owns a 4 x 4 block of the CTA's (R x GT)
-//     outputs and one of KS = 256 / (R/4 * GT/4) interleaved slices of the
+//     2e-4 tolerance): a thread owns an RH x 4 block of the CTA's (R x GT)
+//     outputs and one of KS = 256 / (32/4 * GT/4) interleaved sets of the
 //     chunk's columns, reading w as float4 from shared memory; at the end
 //     the KS partials of each output are summed in ks order through shared
-//     memory.
+//     memory.  KS is fixed by GT alone (the count that fills the CTA at
+//     R = 32); the block height RH = R/8 (4 at R = 32, 2 at 16, 1 at 8 and
+//     4) shrinks with R instead, so that every thread still combines
+//     (half of them at R = 4).  How many rows a thread owns does not change
+//     the order in which an output is summed.
 // Every aggregated element is summed over its slots in ascending order and
-// every output over (slice, ks, chunk, column) in a fixed order, in float32
-// with no atomics, so results are deterministic; band_size and block_f of
-// the schedule do not shape the CTA.  The differences from the TPU kernel
-// by design: F is summed in another order (slices and interleaved column
-// sets, not block_f chunks), and trailing padded slots are not gathered, so
-// an inf or NaN in x[0] does not reach rows whose padding points at it.
+// every output over (slice, ks, chunk, column) in an order fixed by F and
+// G alone, in float32 with no atomics.  So a row's result does not depend
+// on how many rows the launch has (R, V_pad, the SM count): a row-stream
+// partition gives the monolithic forward's rows bit for bit.  band_size
+// and block_f of the schedule do not shape the CTA.  The differences from
+// the TPU kernel by design: F is summed in another order (slices and
+// interleaved column sets, not block_f chunks), and trailing padded slots
+// are not gathered, so an inf or NaN in x[0] does not reach rows whose
+// padding points at it.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -189,9 +196,12 @@ fused_agg_cmb_kernel(const int* __restrict__ idx, const float* __restrict__ wts,
   const int lanes = fc / (VEC * NC), lane = tid % lanes, grp = tid / lanes;
   const int groups = kThreads / lanes, per = (rows + groups - 1) / groups;
   const int rb = min(grp * per, rows), re = min(rb + per, rows);
-  // combination: a 4 x 4 output block (rt, gq) and the column slice ks
-  const int rtn = rows / 4, gqn = gt / 4, tiles = rtn * gqn, ksn = kThreads / tiles;
+  // combination: an rh x 4 output block (rt, gq) and the column set ks; the
+  // set count depends on GT alone, and threads past tiles * ksn idle
+  const int rh = rows >= 8 ? rows / 8 : 1, rtn = rows / rh, gqn = gt / 4, tiles = rtn * gqn;
+  const int ksn = kThreads / (kMaxRows / 4 * gqn);
   const int tile = tid % tiles, ks = tid / tiles, rt = tile % rtn, gq = tile / rtn;
+  const bool combines = ks < ksn;
   float acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -232,16 +242,30 @@ fused_agg_cmb_kernel(const int* __restrict__ idx, const float* __restrict__ wts,
 
     // columns cc = ks, ks + ksn, ... of the chunk, in ascending order
     const int nc = min(fc, f - f0);
-    const float* hrow = h_s + rt * 4 * hld;
+    const float* hrow = h_s + rt * rh * hld;
     const float4* w4 = reinterpret_cast<const float4*>(w_cur);
-    for (int cc = ks; cc < nc; cc += ksn) {
-      const float4 wv = w4[cc * gqn + gq];
-      const float hr[4] = {hrow[cc], hrow[hld + cc], hrow[2 * hld + cc], hrow[3 * hld + cc]};
-      const float wc[4] = {wv.x, wv.y, wv.z, wv.w};
+    if (rh == 4) {
+      for (int cc = combines ? ks : nc; cc < nc; cc += ksn) {
+        const float4 wv = w4[cc * gqn + gq];
+        const float hr[4] = {hrow[cc], hrow[hld + cc], hrow[2 * hld + cc], hrow[3 * hld + cc]};
+        const float wc[4] = {wv.x, wv.y, wv.z, wv.w};
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(hr[i], wc[j], acc[i][j]);
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(hr[i], wc[j], acc[i][j]);
+      }
+    } else {
+      for (int cc = combines ? ks : nc; cc < nc; cc += ksn) {
+        const float4 wv = w4[cc * gqn + gq];
+        const float wc[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          if (i < rh) {
+            const float hr = hrow[i * hld + cc];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(hr, wc[j], acc[i][j]);
+          }
+      }
     }
     __syncthreads();
   }
@@ -249,10 +273,13 @@ fused_agg_cmb_kernel(const int* __restrict__ idx, const float* __restrict__ wts,
   // the KS partials of each output, summed in ks order
   float* red = h_s;           // [ksn][rows][gt]
   float* part = h_s + kRed;   // [rows][gt]: this CTA's sum over its slice
+  if (combines) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 4; ++i)
+      if (i < rh)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) red[(ks * rows + rt * 4 + i) * gt + gq * 4 + j] = acc[i][j];
+        for (int j = 0; j < 4; ++j) red[(ks * rows + rt * rh + i) * gt + gq * 4 + j] = acc[i][j];
+  }
   __syncthreads();
   for (int o = tid; o < rows * gt; o += kThreads) {
     const int r = o / gt, gg = o % gt;

@@ -32,7 +32,22 @@ attention at smollm-135m prefill (bf16) and ``gemm`` at smollm's ``w_gate``
   cluster, one SM per row block);
 - ``--gnn-from CHECKOUT``: the GNN kernels also built from another
   checkout's ``spmm.cu`` and ``fused_agg_cmb.cu`` (the parent commit's, for
-  a before/after reading in one process), timed on the same inputs.
+  a before/after reading in one process), timed on the same inputs; besides
+  the two shapes above also at cora's unpadded ELL (V_pad 2708, where the
+  fused kernel takes 16 rows a CTA) at layer 0 (F 1433, G 16) and layer 1
+  (F 16, G 8).  And whole kernel-tier forwards of GCN 1433 -> 16 -> 8 on
+  cora (``repro_torch.compile`` under seq/AC, seq/CA and sp_opt/AC, the
+  median of 30 warm ``run`` calls, CUDA events and host wall) of that
+  checkout's package and this one's, each in a process of its own, in the
+  order other, this, this, other;
+- with the GNN kernels, the dense products that keep a row's result
+  independent of the call's row count, at cora's and the reddit-bin
+  (512, 256) x 64 batch's layer-0 combination: ``row_matmul`` (the eager
+  tier's), the same over 64-, 512- and 2,048-row tiles, one batched call
+  over the zero-padded tiles (a variable batch count, and a fixed 32), and
+  the ``gemm`` kernel (the kernel tier's), beside one ``torch.matmul``;
+  each with its direct-call time (CUDA events, host cost included) and
+  whether its rows came out bit-identical at other row counts and offsets.
 
 One JSON line per reading; ``--out`` also writes them all to a file.
 """
@@ -49,7 +64,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .common import BUILD_DIR, CudaLibrary, build_libraries
+from .common import BUILD_DIR, CudaLibrary, build_libraries, cdiv
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # dense, per s
@@ -105,8 +120,8 @@ ABLATIONS[("fused_agg_cmb", "stage_only")] = [(
     "    if (f0 + lane * VEC < f) {\n",
     "    if (f0 + lane * VEC < 0 * f) {  // ablation: no gathers\n")]
 ABLATIONS[("fused_agg_cmb", "gathers_only")] = [(
-    "    for (int cc = ks; cc < nc; cc += ksn) {\n",
-    "    for (int cc = ks; cc < 0 * nc; cc += ksn) {  // ablation: no combination\n")]
+    "    const int nc = min(fc, f - f0);\n",
+    "    const int nc = 0 * min(fc, f - f0);  // ablation: no combination\n")]
 # not ablations: the fused kernel with at most 8 rows a CTA (four times the
 # w re-reads), and with F in one slice (no cluster); outputs right
 ABLATIONS[("fused_agg_cmb", "rows_8")] = [(
@@ -332,6 +347,13 @@ def main(argv=None) -> int:
 
     if "spmm" in wanted:
         gnn_readings(reading, dev, sp_ops, agg_ops, flush, args.iters, records, before)
+        product_readings(dev, gemm, records)
+        if args.gnn_from:
+            here = Path(__file__).resolve().parents[3]
+            for label, tree in (("other", args.gnn_from), ("this", here), ("this", here),
+                                ("other", args.gnn_from)):
+                emit({"reading": "forward", "tree": label, "checkout": str(tree),
+                      **forward_times(tree)}, records)
     if "flash_attention" not in wanted:
         return finish(args, records)
 
@@ -400,11 +422,14 @@ def gnn_readings(reading, dev, sp_ops, agg_ops, flush, iters, records, before) -
     cora, _ = load_dataset("cora")
     batch, r_idx, r_wts = bucket_ell(sample_graphs(TABLE4["reddit-bin"], 32, seed=0),
                                      (512, 256))
-    cases = [("cora_l0_f32", cora, *cora.to_ell(128)[:2], 1433),
+    # (name, graph, ELL, F, G, full readings or only before/after)
+    cases = [("cora_l0_f32", cora, *cora.to_ell(128)[:2], 1433, 16, True),
              ("reddit_bin_512x256_l0_f32", batch.graph, r_idx, r_wts,
-              TABLE4["reddit-bin"].n_features)]
-    g = 16
-    for name, graph, idx, wts, f in cases:
+              TABLE4["reddit-bin"].n_features, 16, True)]
+    if before:
+        cases += [("cora_vpad2708_l0_f32", cora, *cora.to_ell(1)[:2], 1433, 16, False),
+                  ("cora_vpad2708_l1_f32", cora, *cora.to_ell(1)[:2], 16, 8, False)]
+    for name, graph, idx, wts, f, g, full in cases:
         idx, wts = torch.as_tensor(idx, device=dev), torch.as_tensor(wts, device=dev)
         rng = np.random.default_rng(1)
         x = torch.as_tensor(rng.normal(size=(graph.n_nodes, f)).astype(np.float32), device=dev)
@@ -445,7 +470,10 @@ def gnn_readings(reading, dev, sp_ops, agg_ops, flush, iters, records, before) -
                             fn, flush, iters)[0]
                     finally:
                         ops.LIBRARY._lib = saved
-            emit({"reading": "before_after", "case": name, **times}, records)
+            emit({"reading": "before_after", "case": name, "v_pad": v_pad, "f": f, "g": g,
+                  "fused_rows_per_cta": agg_ops.plan(idx, x, w)["rows"], **times}, records)
+        if not full:
+            continue
         sp = sp_ops.plan(idx, x)
         reading(f"spmm {name}", lambda: sp_ops.spmm(idx, wts, x),
                 lambda: torch.sparse.mm(a, x), sp_ops.LIBRARY, ("stage_only",),
@@ -465,6 +493,112 @@ def gnn_readings(reading, dev, sp_ops, agg_ops, flush, iters, records, before) -
                  "ctas": fu["grid_x"] * fu["grid_y"] * fu["slices"], "plan": fu,
                  # every row block with a real slot reads all of w from L2
                  "w_l2_bytes": blocks * f * g * 4, "x_bytes": x_bytes})
+
+
+FORWARD_TIMER = r"""
+import json, time, torch
+import repro_torch
+from repro_torch.core.schedule import ModelSchedule
+from repro_torch.gnn import GNNConfig
+from repro_torch.graphs import load_dataset
+
+dev = torch.device("cuda")
+cora, _ = load_dataset("cora")
+cfg = GNNConfig("gcn", f_in=1433, hidden=16, n_classes=8, use_pallas=True)
+x = torch.randn((cora.n_nodes, 1433), generator=torch.Generator().manual_seed(10)).to(dev)
+rec, params = {}, None
+for p, o in (("seq", "AC"), ("seq", "CA"), ("sp_opt", "AC")):
+    prog = repro_torch.compile(cfg, graph=cora, device=dev,
+                               schedule=ModelSchedule.from_policies(p, o, cfg.dims))
+    params = params or prog.init(torch.Generator().manual_seed(0))
+    for _ in range(3):
+        prog.run(params, x)
+    torch.cuda.synchronize()
+    walls, evs = [], []
+    for _ in range(30):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        prog.run(params, x)
+        b.record()
+        b.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        evs.append(a.elapsed_time(b))
+    rec[f"{p}/{o}"] = {"events_ms": sorted(evs)[15], "wall_ms": sorted(walls)[15]}
+print(json.dumps(rec))
+"""
+
+
+def forward_times(tree: Path) -> dict:
+    """Kernel-tier forwards at cora of the package in checkout ``tree``,
+    timed in a process of its own (``FORWARD_TIMER``)."""
+    import os
+    import sys
+
+    env = {**os.environ, "PYTHONPATH": str(Path(tree).resolve() / "src")}
+    out = subprocess.run([sys.executable, "-c", FORWARD_TIMER], env=env, cwd=tree,
+                         capture_output=True, text=True, timeout=600, check=True)
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def product_readings(dev, gemm, records, iters: int = 30) -> None:
+    """Dense products that keep each row's result independent of the
+    call's row count, timed and checked for that (see the module note)."""
+    from .common import ROW_TILE, row_matmul
+
+    def tiled(x, w, tile):
+        n, f = x.shape
+        xp = torch.zeros((cdiv(n, tile) * tile, f), device=dev)
+        xp[:n] = x
+        return torch.cat([xp[s:s + tile] @ w for s in range(0, xp.shape[0], tile)])[:n]
+
+    def batched(x, w, chunk=None):
+        n, f = x.shape
+        t = cdiv(n, ROW_TILE)
+        chunk = chunk or t
+        xp = torch.zeros((cdiv(t, chunk) * chunk * ROW_TILE, f), device=dev)
+        xp[:n] = x
+        return torch.cat([
+            torch.bmm(xp[s:s + chunk * ROW_TILE].view(chunk, ROW_TILE, f),
+                      w.expand(chunk, f, w.shape[1])).reshape(-1, w.shape[1])
+            for s in range(0, xp.shape[0], chunk * ROW_TILE)])[:n]
+
+    products = {
+        f"row_matmul (tile {ROW_TILE})": row_matmul,
+        **{f"tile {t}": (lambda x, w, t=t: tiled(x, w, t)) for t in (64, 512, 2048)},
+        "bmm over the tiles": batched,
+        "bmm, 32 tiles a call": lambda x, w: batched(x, w, 32),
+        "gemm kernel": gemm,
+        "torch.matmul": torch.matmul,
+    }
+
+    def event_ms(fn):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(iters):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            ts.append(a.elapsed_time(b))
+        return float(np.median(ts))
+
+    for case, (v, f, g) in {"cora_l0": (2708, 1433, 16),
+                            "reddit_bin_512x256_x64_l0": (32768, 3782, 16)}.items():
+        gen = torch.Generator().manual_seed(3)
+        x = torch.randn((v, f), generator=gen).to(dev)
+        w = (torch.randn((f, g), generator=gen) / f ** 0.5).to(dev)
+        for name, fn in products.items():
+            full = fn(x, w)
+            stable = all(torch.equal(fn(x[s:s + n], w), full[s:s + n])
+                         for n in (1, 100, 300, 1024) for s in (0, 5))
+            emit({"reading": "dense_product", "case": case, "shape": [v, f, g],
+                  "product": name, "direct_ms": event_ms(lambda: fn(x, w)),
+                  "rows_bit_stable": stable,
+                  "max_abs_vs_matmul": float((full - x @ w).abs().max())}, records)
 
 
 if __name__ == "__main__":

@@ -390,3 +390,140 @@ def test_flash_bf16_strides_tma_refuses_take_cuda_cores(dev):
     plain = attend_chunked(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                            torch.arange(100, device=dev), torch.arange(100, device=dev))
     torch.testing.assert_close(out, plain.transpose(1, 2), **BF16_TOL)
+
+
+# ---------------------------------------------------------------------------
+# Row-count independence, the kernel-tier partitioned lane and the engine
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("f,g", [(1433, 16), (3782, 16), (64, 8), (500, 40)])
+def test_fused_rows_do_not_depend_on_the_rows_launched(dev, f, g):
+    """The same 64 rows launched alone and as the first rows of 8,192
+    (which pick different rows per CTA): bit-identical outputs."""
+    from repro_torch.kernels.fused_agg_cmb.ops import plan
+
+    idx, wts = ell(64, 6, 40, dev)
+    rng = np.random.default_rng(41)
+    big_i = torch.as_tensor(rng.integers(0, 64, (8192, idx.shape[1])).astype(np.int32),
+                            device=dev)
+    big_w = torch.as_tensor(rng.uniform(0.1, 1.0, (8192, idx.shape[1])).astype(
+        np.float32), device=dev)
+    big_i[:64], big_w[:64] = idx, wts
+    x = torch.randn(64, f, device=dev)
+    w = torch.randn(f, g, device=dev) / f ** 0.5
+    assert plan(idx, x, w)["rows"] != plan(big_i, x, w)["rows"]
+    small = fused_agg_cmb(idx, wts, x, w)
+    big = fused_agg_cmb(big_i, big_w, x, w)
+    assert torch.equal(small, big[:64])
+
+
+def test_fused_rows_match_across_every_rows_per_cta(dev):
+    """The same 64 rows as the first rows of launches of 64, 1,024, 2,708
+    and 8,192 rows, which take 4, 8, 16 and 32 rows a CTA (every height of
+    a thread's combination block): bit-identical outputs."""
+    from repro_torch.kernels.fused_agg_cmb.ops import plan
+
+    idx, wts = ell(64, 6, 40, dev)
+    rng = np.random.default_rng(42)
+    big_i = torch.as_tensor(rng.integers(0, 64, (8192, idx.shape[1])).astype(np.int32),
+                            device=dev)
+    big_w = torch.as_tensor(rng.uniform(0.1, 1.0, (8192, idx.shape[1])).astype(
+        np.float32), device=dev)
+    big_i[:64], big_w[:64] = idx, wts
+    x = torch.randn(64, 1433, device=dev)
+    w = torch.randn(1433, 16, device=dev) / 1433 ** 0.5
+    counts = (64, 1024, 2708, 8192)
+    assert [plan(big_i[:n], x, w)["rows"] for n in counts] == [4, 8, 16, 32]
+    outs = [fused_agg_cmb(big_i[:n].contiguous(), big_w[:n].contiguous(), x, w)[:64]
+            for n in counts]
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+
+
+@pytest.mark.parametrize("f,g", [(1433, 16), (16, 8), (3782, 16), (500, 40)])
+def test_kernel_matmul_rows_are_bit_stable_on_card(dev, f, g):
+    """The kernel tier's dense product (the gemm kernel): a row's result
+    does not depend on the call's row count or the row's offset."""
+    from repro_torch.gnn.layers import kernel_matmul
+
+    x = torch.randn(4096, f, device=dev)
+    w = torch.randn(f, g, device=dev) / f ** 0.5
+    g0 = gemm.launches
+    full = kernel_matmul(x, w)
+    assert gemm.launches == g0 + 1
+    for s, e in [(0, 96), (5, 1000), (100, 2708), (1, 2), (3, 4096)]:
+        assert torch.equal(kernel_matmul(x[s:e], w), full[s:e])
+
+
+def test_row_matmul_rows_are_bit_stable_on_card(dev):
+    from repro_torch.kernels.common import row_matmul
+
+    x = torch.randn(2708, 1433, device=dev)
+    w = torch.randn(1433, 16, device=dev)
+    full = row_matmul(x, w)
+    for s, e in [(0, 96), (5, 1000), (100, 2708), (1, 2)]:
+        assert torch.equal(row_matmul(x[s:e], w), full[s:e])
+
+
+def test_segment_readout_is_deterministic_on_card(dev):
+    from repro_torch.gnn.layers import segment_readout
+
+    h = torch.randn(16384, 8, device=dev)
+    ids = torch.arange(16384, device=dev) // 512
+    a = segment_readout(h, ids, 32, "mean")
+    assert all(torch.equal(a, segment_readout(h, ids, 32, "mean")) for _ in range(5))
+    assert torch.equal(a[3], segment_readout(h[1536:2048], ids[:512], 1, "mean")[0])
+
+
+@pytest.mark.parametrize("policy,order", [("sp_opt", "AC"), ("seq", "CA"),
+                                          ("seq", "AC")])
+def test_kernel_tier_row_stream_is_bit_identical(dev, policy, order):
+    """cora served as a giant through the engine's partitioned lane
+    (row_stream closures of 1,024 rows) on the kernel tier: bit-identical
+    to the monolithic kernel-tier forward."""
+    import dataclasses
+
+    from repro_torch.core.hw import DEFAULT_ACCEL
+    from repro_torch.core.schedule import ModelSchedule
+    from repro_torch.graphs import BucketPolicy
+    from repro_torch.runtime import InferenceEngine, Request
+
+    g, _ = load_dataset("cora")
+    dims = [(1433, 16), (16, 8)]
+    sched = ModelSchedule.from_policies(policy, order, dims)
+    eng = InferenceEngine(dims, use_pallas=True, readout=None, schedule=sched,
+                          hw=dataclasses.replace(DEFAULT_ACCEL, gb_capacity_bytes=None),
+                          objective="edp", policy=BucketPolicy(max_nodes=1024),
+                          partition_oversized=True, device=dev)
+    params = eng.init(torch.Generator().manual_seed(0))
+    x = np.random.default_rng(0).normal(size=(g.n_nodes, 1433)).astype(np.float32)
+    mono = repro_torch.compile(GNNConfig("gcn", 1433, 16, 8, use_pallas=True), graph=g,
+                               schedule=sched, device=dev).run(params, x).cpu().numpy()
+    fused0, spmm0 = fused_agg_cmb.launches, spmm.launches
+    (res,) = eng.submit([Request(graph=g, x=x)])
+    assert (res.status, res.tier, res.plan) == ("ok", "pallas+searched", "row_stream")
+    assert res.n_partitions > 1 and eng.stats().n_downgrades == 0
+    assert (fused_agg_cmb.launches > fused0) if policy == "sp_opt" else (
+        spmm.launches > spmm0)
+    assert np.array_equal(res.output, mono)
+
+
+def test_engine_serves_on_the_kernel_tier_without_downgrades(dev):
+    from repro_torch.graphs import TABLE4, BucketPolicy, sample_graphs
+    from repro_torch.runtime import InferenceEngine, Request
+
+    eng = InferenceEngine([(28, 16), (16, 4)], use_pallas=True, device=dev,
+                          policy=BucketPolicy(max_graphs=8))
+    eng.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    reqs = [Request(graph=gr, x=rng.normal(size=(gr.n_nodes, 28)).astype(np.float32),
+                    rid=i) for i, gr in enumerate(sample_graphs(TABLE4["mutag"], 12))]
+    fused0 = fused_agg_cmb.launches
+    first = eng.submit(reqs)
+    assert fused_agg_cmb.launches > fused0
+    assert all(r.status == "ok" and r.tier == "pallas+searched" for r in first)
+    assert eng.stats().n_downgrades == 0
+    before = repro_torch.trace_count()
+    again = eng.submit(reqs)
+    assert repro_torch.trace_count() == before
+    assert all(np.array_equal(a.output, b.output) for a, b in zip(first, again))

@@ -19,7 +19,9 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "import sys, repro_torch, repro_torch.gnn, repro_torch.graphs, "
         "repro_torch.kernels.spmm, repro_torch.kernels.fused_agg_cmb, "
         "repro_torch.kernels.flash_attention, repro_torch.kernels.gemm_dataflow, "
-        "repro_torch.models, repro_torch.configs, repro_torch.launch.serve\n"
+        "repro_torch.models, repro_torch.configs, repro_torch.launch.serve, "
+        "repro_torch.runtime, repro_torch.graphs.partition, "
+        "repro_torch.core.calibrate\n"
         "import repro_torch.configs.gcn_paper\n"
         "from repro_torch.configs import all_configs\n"
         "all_configs()\n"

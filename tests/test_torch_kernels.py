@@ -15,7 +15,13 @@ from repro.graphs import from_edges
 from repro.kernels import fused_agg_cmb as ref_fused
 from repro.kernels import spmm as ref_spmm
 from repro.kernels.spmm.ops import spmm_streamed as ref_spmm_streamed
-from repro_torch.kernels.common import BUILD_DIR, CudaLibrary, cdiv, measure_wall
+from repro_torch.kernels.common import (
+    BUILD_DIR,
+    CudaKernelError,
+    CudaLibrary,
+    cdiv,
+    measure_wall,
+)
 from repro_torch.kernels.fused_agg_cmb import fused_agg_cmb, fused_ref
 from repro_torch.kernels.spmm import spmm, spmm_ref, spmm_streamed
 
@@ -165,6 +171,33 @@ def test_built_library_is_keyed_by_its_source(tmp_path):
     assert first.parent == BUILD_DIR and first.name.startswith("k-")
     src.write_text("// two")
     assert lib.so_path() != first
+
+
+def test_libraries_of_the_same_sources_build_once(tmp_path, monkeypatch):
+    """Two libraries whose sources hash alike (an unchanged kernel of
+    another checkout) start one ``nvcc``: two would race for one file."""
+    from repro_torch.kernels.common import build_libraries
+
+    for sub in ("a", "b"):
+        (tmp_path / sub).mkdir()
+        (tmp_path / sub / "k.cu").write_text("// same")
+    libs = [CudaLibrary(tmp_path / sub / "k.cu", {}) for sub in ("a", "b")]
+    started = []
+    monkeypatch.setattr(CudaLibrary, "start_build", lambda self: started.append(self))
+    build_libraries(libs)
+    assert started == libs[:1]
+
+
+def test_a_library_that_cannot_build_raises_cuda_kernel_error(tmp_path):
+    """A kernel that does not build raises ``CudaKernelError`` (the type the
+    serving ladder re-raises), whether ``nvcc`` is missing, as on a
+    CPU-only host, or refuses the source; no library is left behind."""
+    src = tmp_path / "broken.cu"
+    src.write_text('extern "C" int broken_launch( {\n')
+    lib = CudaLibrary(src, {"broken_launch": []})
+    with pytest.raises(CudaKernelError, match="nvcc"):
+        lib.load()
+    assert not lib.so_path().exists()
 
 
 # -- the padded-ELL layout the CUDA kernels rely on --------------------------
