@@ -13,9 +13,9 @@ combination = GEMM).  The inter-phase dataflow is a *program structure*:
                      immediate GEMM operand; on the card this is the fused
                      CUDA kernel (:mod:`repro_torch.kernels.fused_agg_cmb`),
                      eagerly its band loop (paper SP-Optimized).
-  * ``pp``         — producer/consumer device groups
-                     (:mod:`repro_torch.gnn.pp`); one device runs its
-                     SP-Generic fallback.
+  * ``pp``         — producer/consumer device groups, each on a CUDA
+                     stream of its own (:mod:`repro_torch.gnn.pp`);
+                     without a mesh, its SP-Generic fallback.
 
 Phase order is a knob too: ``AC`` computes (A·X)·W, ``CA`` computes
 A·(X·W) — same result, different cost (paper Sec. 3.3).
@@ -240,7 +240,8 @@ def _pp(adj, x, w, spec, mesh):
     from .pp import pp_multiphase_matmul
 
     return pp_multiphase_matmul(
-        adj, x, w, order=spec.order, mesh=mesh, band_size=spec.band_size
+        adj, x, w, order=spec.order, mesh=mesh, band_size=spec.band_size,
+        use_kernels=spec.use_pallas,
     )
 
 

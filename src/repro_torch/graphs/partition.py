@@ -638,9 +638,11 @@ def pp_shard_forward(
     """Whole-model forward on the device-level pipeline-parallel path.
 
     On one device this is :mod:`repro_torch.gnn.pp`'s ``mesh=None`` path,
-    the reference's SP-Generic fallback.  A mesh of 2 or more devices
-    raises in :func:`repro_torch.gnn.pp.pp_multiphase_matmul` (the
-    two-stream pipeline is not ported yet).
+    the reference's SP-Generic fallback.  On 2 or more cards the first two
+    are the producer and consumer groups of
+    :func:`repro_torch.gnn.pp.pp_multiphase_matmul`, bands handed between
+    them by a peer copy; the eager tier's output is the one-device
+    fallback's, bit for bit.
     """
     from ..gnn.layers import EllAdjacency
     from ..gnn.model import forward_layers

@@ -18,6 +18,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -167,6 +168,9 @@ class CudaLibrary:
         self.source = Path(source)
         self.functions = functions
         self._lib: ctypes.CDLL | None = None
+        # threads that first use the kernel together (the async serving
+        # front-end's workers) build it once, not into one temporary file
+        self._load_lock = threading.Lock()
 
     @property
     def name(self) -> str:
@@ -226,21 +230,26 @@ class CudaLibrary:
         os.replace(tmp, self.so_path())
 
     def load(self) -> ctypes.CDLL:
-        """The loaded library, built first if it is missing."""
-        if self._lib is None:
-            self.finish_build(self.start_build())
-            try:
-                lib = ctypes.CDLL(str(self.so_path()))
-                for fn, argtypes in self.functions.items():
-                    f = getattr(lib, fn)
-                    f.argtypes = argtypes
-                    f.restype = ctypes.c_int
-                err = getattr(lib, f"{self.name}_error_string")
-            except (OSError, AttributeError) as e:
-                raise CudaKernelError(f"cannot load {self.so_path().name}: {e}") from e
-            err.argtypes = [ctypes.c_int]
-            err.restype = ctypes.c_char_p
-            self._lib = lib
+        """The loaded library, built first if it is missing.  Thread-safe:
+        concurrent first calls run ``nvcc`` once."""
+        if self._lib is not None:
+            return self._lib
+        with self._load_lock:
+            if self._lib is None:
+                self.finish_build(self.start_build())
+                try:
+                    lib = ctypes.CDLL(str(self.so_path()))
+                    for fn, argtypes in self.functions.items():
+                        f = getattr(lib, fn)
+                        f.argtypes = argtypes
+                        f.restype = ctypes.c_int
+                    err = getattr(lib, f"{self.name}_error_string")
+                except (OSError, AttributeError) as e:
+                    raise CudaKernelError(
+                        f"cannot load {self.so_path().name}: {e}") from e
+                err.argtypes = [ctypes.c_int]
+                err.restype = ctypes.c_char_p
+                self._lib = lib
         return self._lib
 
     def check(self, code: int, what: str) -> None:

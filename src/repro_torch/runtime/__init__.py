@@ -1,8 +1,4 @@
-"""The serving runtime of the port (:mod:`repro.runtime`'s counterpart).
-
-``AsyncEngine`` and ``BucketPlacer`` (the reference's ``scheduler.py``)
-are not ported yet.
-"""
+"""The serving runtime of the port (:mod:`repro.runtime`'s counterpart)."""
 from .engine import (
     EngineStats,
     InferenceEngine,
@@ -13,6 +9,12 @@ from .engine import (
     Result,
 )
 from .fault_tolerance import ResilientRunner, StragglerMonitor
+from .scheduler import (
+    AsyncEngine,
+    AsyncEngineStats,
+    AsyncPrecompileReport,
+    BucketPlacer,
+)
 from .faults import COMPILE, FaultInjector, FaultRule, InjectionEvent, kill_pallas
 from .resilience import (
     STATUS_DEGRADED,

@@ -1020,6 +1020,90 @@ class InferenceEngine:
             self.store.save_profile(self.profile)
         return results  # type: ignore[return-value]
 
+    def serve_group(
+        self,
+        requests: Sequence[Request],
+        t_arrival: Sequence[float] | None = None,
+        *,
+        pre: tuple[GraphBatch, torch.Tensor] | None = None,
+    ) -> list[Result]:
+        """Serve one *pre-admitted*, same-bucket group of requests — the
+        async front-end's batching-window flush path.
+
+        The caller owns admission (the resilience contract puts it
+        **before** queueing, so nothing malformed, oversized or shed ever
+        reaches a window); this path re-checks nothing.  Per-request
+        deadlines are enforced here, at the window, against each request's
+        own ``t_arrival`` (its enqueue time, ``time.perf_counter()``
+        clock) — as are the reported latencies, so a request's latency is
+        its queue wait plus its micro-batch, never the whole flush chunk.
+
+        ``pre`` is an optionally pre-assembled ``(GraphBatch, features)``
+        pair whose features the front-end already staged on this engine's
+        device (a ``non_blocking`` copy on the worker's copy stream, which
+        the worker's compute stream waits on), so the host-to-device copy
+        overlaps queueing.  It is used only when every request in the
+        group is still live — a deadline drop changes the batch
+        composition and falls back to re-assembly — and it is never
+        donated: retries and lower ladder tiers read it again.
+
+        Same fault contract as :meth:`submit`: never raises for a
+        per-request cause.
+        """
+        if self.params is None:
+            raise ValueError(
+                "engine has no params; pass params= or call engine.init(generator)"
+            )
+        if not requests:
+            return []
+        t0 = time.perf_counter()
+        if t_arrival is None:
+            t_arrival = [t0] * len(requests)
+        bucket_key = self.policy.bucket_of(requests[0].graph)
+        self._n_requests += len(requests)
+        self._buckets_seen.add(bucket_key)
+        self.profile.record_request(bucket_key, len(requests))
+        results: list[Result | None] = [None] * len(requests)
+        idxs = list(range(len(requests)))
+        for chunk in _chunks(idxs, self.policy.max_graphs):
+            live = self._enforce_deadlines(
+                requests, chunk, bucket_key, t_arrival, results
+            )
+            if live:
+                self._serve_batch(
+                    requests, live, bucket_key, results,
+                    t_arrival=t_arrival,
+                    pre=pre if live == idxs else None,
+                )
+        self._wall_s += time.perf_counter() - t0
+        return results  # type: ignore[return-value]
+
+    # -- partitioned lane ----------------------------------------------------
+    def serve_partitioned(
+        self, req: Request, t_arrival: float | None = None
+    ) -> Result:
+        """Serve one oversized request through the partitioned lane.
+
+        The async front-end dispatches these as standalone worker items
+        (they never join a batching window); same fault contract as
+        :meth:`submit` — a planning or execution failure comes back as a
+        typed non-``ok`` :class:`Result`, never an exception.
+        """
+        if self.params is None:
+            raise ValueError(
+                "engine has no params; pass params= or call engine.init(generator)"
+            )
+        t0 = time.perf_counter()
+        results: list[Result | None] = [None]
+        self._serve_partitioned(
+            [req], 0, results, t_arrival if t_arrival is not None else t0
+        )
+        self._n_requests += 1
+        self._wall_s += time.perf_counter() - t0
+        if self.store is not None:
+            self.store.save_profile(self.profile)
+        return results[0]  # type: ignore[return-value]
+
     def _plan_for(self, graph: CSRGraph):
         """The cached partition plan for this graph's shape class."""
         key = self.policy.bucket_of(graph)
@@ -1268,12 +1352,20 @@ class InferenceEngine:
         *,
         t_arrival: Sequence[float],
         solo: bool = False,
+        pre: tuple[GraphBatch, torch.Tensor] | None = None,
     ) -> None:
         """Assemble and execute one micro-batch down the ladder; on a
-        whole-batch fault, quarantine by re-running each member solo."""
+        whole-batch fault, quarantine by re-running each member solo.
+
+        ``pre`` skips assembly: the front-end already built the batch and
+        staged its features on this engine's device (quarantine solo
+        re-runs always re-assemble — their composition differs)."""
         t0 = time.perf_counter()
-        batch = assemble([requests[i].graph for i in idxs], self.policy)
-        x_in = batch.batch_features([requests[i].x for i in idxs])
+        if pre is not None:
+            batch, x_in = pre
+        else:
+            batch = assemble([requests[i].graph for i in idxs], self.policy)
+            x_in = batch.batch_features([requests[i].x for i in idxs])
         self.profile.record_batch(bucket_key, batch.slots)
         rids = [requests[i].rid for i in idxs]
         batch_index = self._batch_seq.get(bucket_key, 0)
@@ -1352,9 +1444,11 @@ class InferenceEngine:
     ):
         """Walk the degradation ladder with bounded retries per tier.
 
-        ``x_in`` is the assembled feature block, a host ``np.ndarray``:
-        each attempt stages it anew, so a donated tensor never needs to
-        survive a retry or a lower tier.
+        ``x_in`` is the assembled feature block: a host ``np.ndarray``,
+        which each attempt stages anew (so a donated tensor never needs to
+        survive a retry or a lower tier), or a tensor the front-end already
+        staged on this engine's device, which is never donated — retries
+        and the other ladder tiers read it again.
 
         Returns ``(outputs, tier_index, n_retries, error)`` — ``error`` is
         ``None`` on success, the (taxonomy-wrapped) last failure when every
@@ -1398,11 +1492,15 @@ class InferenceEngine:
             corrupt = self.injector.on_run(
                 bucket_key, batch_index, rids, tier.name
             )
-        x = self._stage(x_in)
+        staged = isinstance(x_in, torch.Tensor)
+        x = x_in if staged else self._stage(x_in)
+        # a staged tensor must survive retries and lower ladder tiers;
+        # donating it would leave the next attempt an empty one
+        donate = self.donate and not staged
         traces_before = trace_count()
         t_run = time.perf_counter()
         if self.readout is None:
-            out = bound.run(self.params, x, donate=self.donate)
+            out = bound.run(self.params, x, donate=donate)
         else:
             # readout over the padded slot count, not n_graphs: the
             # executable shape then depends only on the bucket, so tail
@@ -1414,7 +1512,7 @@ class InferenceEngine:
                 segment_ids=self._segment_ids(batch),
                 num_segments=batch.slots,
                 readout=self.readout,
-                donate=self.donate,
+                donate=donate,
             )
         del x  # the engine's own reference: the block frees after the run
         arr = out.cpu().numpy()

@@ -527,3 +527,132 @@ def test_engine_serves_on_the_kernel_tier_without_downgrades(dev):
     again = eng.submit(reqs)
     assert repro_torch.trace_count() == before
     assert all(np.array_equal(a.output, b.output) for a, b in zip(first, again))
+
+
+def test_pp_two_streams_over_256_bands_bit_identical(dev):
+    """The Parallel Pipeline on two streams of one card, 256 bands of 128
+    rows: the eager tier is the one-device fallback bit for bit, the
+    kernel tier within 2e-4, on every repeat (a band read before its
+    producer finished, or a slot refilled early, would show here)."""
+    from repro_torch.gnn import EllAdjacency, multiphase_matmul
+
+    v = 256 * 128
+    rng = np.random.default_rng(11)
+    g = from_edges(v, rng.integers(0, v, 3 * v), rng.integers(0, v, 3 * v))
+    adj = EllAdjacency.from_csr(g, device=dev)
+    x = torch.as_tensor(rng.normal(size=(v, 96)).astype(np.float32), device=dev)
+    w = torch.as_tensor(rng.normal(size=(96, 16)).astype(np.float32), device=dev)
+    want = multiphase_matmul(adj, x, w, policy="pp")
+    spmm0, gemm0 = spmm.launches, gemm.launches
+    for _ in range(3):
+        got = multiphase_matmul(adj, x, w, policy="pp", mesh=[dev, dev])
+        kern = multiphase_matmul(adj, x, w, policy="pp", mesh=[dev, dev], use_pallas=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        torch.testing.assert_close(kern, want, rtol=2e-4, atol=2e-4)
+    assert spmm.launches - spmm0 == 3 * 256 and gemm.launches - gemm0 == 3 * 256
+
+
+def test_pp_shard_forward_serves_on_two_cards(dev):
+    """``pp_shard_forward`` on 2 or more cards used to raise (the engine
+    plans ``pp_shard`` whenever it sees 2 cards); now the producer group
+    runs on card 0 and the consumer on card 1, bands handed over by a peer
+    copy."""
+    from repro_torch.gnn import EllAdjacency, multiphase_matmul
+    from repro_torch.graphs.partition import pp_shard_forward
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    rng = np.random.default_rng(12)
+    v = 40 * 128 + 17
+    g = from_edges(v, rng.integers(0, v, 4 * v), rng.integers(0, v, 4 * v))
+    x = rng.normal(size=(v, 48)).astype(np.float32)
+    params = [{"w": torch.as_tensor(rng.normal(size=(48, 16)).astype(np.float32) / 7,
+                                    device=cards[0]),
+               "b": torch.zeros(16, device=cards[0])}]
+    out = pp_shard_forward(g, x, params, n_devices=2)
+    adj = EllAdjacency.from_csr(g, device=cards[0])
+    xt = torch.as_tensor(x, device=cards[0])
+    want = torch.relu(multiphase_matmul(adj, xt, params[0]["w"], policy="pp")
+                      + params[0]["b"]).cpu().numpy()
+    np.testing.assert_allclose(out, want, rtol=2e-4, atol=2e-4)
+    for tier in (False, True):
+        got = multiphase_matmul(adj, xt, params[0]["w"], policy="pp", mesh=cards,
+                                use_pallas=tier)
+        torch.cuda.synchronize()
+        assert got.device == cards[0]
+        np.testing.assert_allclose(torch.relu(got + params[0]["b"]).cpu().numpy(), want,
+                                   rtol=2e-4, atol=2e-4)
+
+
+def test_staged_batch_is_read_after_the_copy_stream(dev):
+    """A worker stages a block on its copy stream; its compute stream,
+    after waiting on the copy's event, reads exactly the host block.  Two
+    workers on one card (labels ``cuda:N#0`` / ``#1``) serve a stream
+    bit-identically to the sync engine."""
+    from repro_torch.graphs import TABLE4, sample_graphs
+    from repro_torch.runtime import AsyncEngine, InferenceEngine, Request
+
+    dims = [(512, 16), (16, 4)]
+    sync = InferenceEngine(dims, use_pallas=True, device=dev)
+    params = sync.init(torch.Generator().manual_seed(0))
+    front = AsyncEngine(dims, params, devices=[dev, dev], use_pallas=True, window_ms=20.0)
+    worker = front.workers[0]
+    host = np.random.default_rng(13).normal(size=(8192, 512)).astype(np.float32)
+    staged = worker.stage(None, host)
+    with torch.cuda.stream(worker.stream):
+        worker.stream.wait_event(staged.ready)
+        seen = staged.x * 1.0
+    torch.cuda.synchronize()
+    assert np.array_equal(seen.cpu().numpy(), host)
+
+    rng = np.random.default_rng(14)
+    reqs = [Request(graph=gr, x=rng.normal(size=(gr.n_nodes, 512)).astype(np.float32),
+                    rid=i) for i, gr in enumerate(sample_graphs(TABLE4["imdb-bin"], 24))]
+    want = sync.submit(reqs)
+    with front:
+        got = front.submit(reqs)
+    assert front.labels == [f"{dev}#0", f"{dev}#1"]
+    for a, b in zip(got, want):
+        assert a.status == b.status == "ok" and a.tier == "pallas+searched"
+        assert np.array_equal(a.output, b.output)
+
+
+def test_two_threads_build_a_kernel_once(dev, tmp_path):
+    """Two threads' first use of one kernel runs ``nvcc`` once and loads
+    one library."""
+    import threading
+
+    from repro_torch.kernels import common
+    from repro_torch.kernels.spmm import ops as spmm_ops
+
+    old = common.BUILD_DIR
+    common.set_build_dir(tmp_path)
+    try:
+        lib = common.CudaLibrary(spmm_ops.LIBRARY.source, spmm_ops.LIBRARY.functions)
+        started, real = [], lib.start_build
+
+        def counting():
+            proc = real()
+            started.append(proc is not None)
+            return proc
+
+        lib.start_build = counting
+        barrier = threading.Barrier(2)
+        loaded = [None, None]
+
+        def first_use(k):
+            barrier.wait()
+            loaded[k] = lib.load()
+
+        threads = [threading.Thread(target=first_use, args=(k,)) for k in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert not any(t.is_alive() for t in threads)
+        assert started == [True] and loaded[0] is loaded[1] is not None
+        assert not list(tmp_path.glob("*.tmp.*"))
+    finally:
+        common.set_build_dir(old)

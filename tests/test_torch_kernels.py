@@ -342,3 +342,50 @@ def test_to_torch_csr_is_the_graph(kind):
     a = to_torch_csr(g, "cpu")
     assert a.layout == torch.sparse_csr and a.shape == (g.n_nodes, g.n_nodes)
     np.testing.assert_array_equal(a.to_dense().numpy(), g.to_dense())
+
+
+def test_concurrent_first_loads_build_once(monkeypatch):
+    """Two threads' first ``load`` of one library run one build (never two
+    ``nvcc`` processes into one temporary file) and share the library."""
+    import threading
+    import time
+    from pathlib import Path
+
+    from repro_torch.kernels import common
+
+    lib = CudaLibrary(Path(__file__), {"spmm_ell_launch": []})
+    calls = {"start": 0, "finish": 0}
+
+    def start_build():
+        calls["start"] += 1
+        time.sleep(0.05)  # a build in flight while the other thread arrives
+        return object()
+
+    def finish_build(proc):
+        calls["finish"] += 1
+        time.sleep(0.05)
+
+    class FakeCDLL:
+        def __init__(self, path):
+            self.spmm_ell_launch = type("Fn", (), {})()
+            self.test_torch_kernels_error_string = type("Fn", (), {})()
+
+    monkeypatch.setattr(lib, "start_build", start_build)
+    monkeypatch.setattr(lib, "finish_build", finish_build)
+    monkeypatch.setattr(common.ctypes, "CDLL", FakeCDLL)
+    barrier = threading.Barrier(2)
+    loaded = [None, None]
+
+    def first_use(k):
+        barrier.wait()
+        loaded[k] = lib.load()
+
+    threads = [threading.Thread(target=first_use, args=(k,)) for k in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert not any(t.is_alive() for t in threads)
+    assert calls == {"start": 1, "finish": 1}
+    assert loaded[0] is loaded[1] is not None
+    assert isinstance(loaded[0], FakeCDLL)
