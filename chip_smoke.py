@@ -2,6 +2,7 @@
 any failure.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only train   # phase 8 alone, in a fresh process
 
 Phases, one JSON line each (no phase's error is caught):
 
@@ -76,28 +77,45 @@ Phases, one JSON line each (no phase's error is caught):
                 bit-identical to the one-device fallback, kernel tier
                 (``spmm`` + ``gemm``) within 2e-4; the three times, and
                 whether the two streams' kernels overlap in the trace.
-8. gemm       — the dataflow GEMM's own entry point, the public op
+8. train      — training on the card, which reaches no kernel (the
+                reference's training reaches no ``pallas_call``): cora GCN
+                1433 -> 16 -> 8 through ``Program.train_step`` (searched
+                schedule, 2 epochs x 20 steps, lr 0.05: the second epoch
+                builds nothing, the loss falls, step 1 within 2e-4 of the
+                CPU's, the kernel tier's step refused with no launch);
+                ``repro_torch.launch.train.main`` at smollm-135m's published
+                widths (batch 8, seq 512): 30 steps with a checkpoint every
+                10, and the same run restarted from its step-20 checkpoint,
+                ``torch.equal`` to it; one step run twice from one state,
+                bit-identical; warm step times before and after one
+                profiled step, with the process's threads, allocator and
+                garbage-collector state at the phase's start; tokens/s,
+                peak memory, one profiled step of each model.
+9. gemm       — the dataflow GEMM's own entry point, the public op
                 ``gemm``, called once per dataflow on cora's layer-0
                 combination (on the model path it is the kernel tier's
                 dense product: seq's combination, SAGE / GIN self terms).
-9. lm_serve   — ``repro_torch.launch.serve.generate`` on smollm-135m at full
+10. lm_serve  — ``repro_torch.launch.serve.generate`` on smollm-135m at full
                 width (batch 4, 1024-token prompts, 32 greedy tokens), with
                 the prefill logits held against the plain-version twin in
                 f32 and in bf16, then a depth-2 forward of the other dense
                 archs at full width against their twins.
 
-Launch counts are set to 0 just before phases 3-9 (each part of the engine
+Launch counts are set to 0 just before phases 3-10 (each part of the engine
 and async phases that serves the main path) and read just after;
 the ``{"kernels": [...]}`` line reports them.  The last line is
 ``{"ok": true, "device": {...}}``; it is printed only when every phase
 passed.  Weights and data are random, made from fixed seeds.
 """
+import gc
 import json
+import os
 import re
 import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -1029,12 +1047,16 @@ def phase_engine(dev, counters, n_requests=64) -> tuple[dict, dict]:
     return launches, held
 
 
+PROFILED_WINDOWS = [0]  # torch.profiler windows opened in this process
+
+
 def device_trace(fn, name) -> tuple[object, list]:
     """Run ``fn`` under ``torch.profiler`` (CPU and CUDA activities) and
     return its result and the device events of the trace: kernels,
     copies and fills, each ``(category, name, stream, start_us, end_us)``."""
     from torch.profiler import ProfilerActivity, profile
 
+    PROFILED_WINDOWS[0] += 1
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
@@ -1360,6 +1382,310 @@ def phase_pp(dev, counters, held) -> dict:
     return launches
 
 
+def traced_step(fn, name) -> tuple[object, dict]:
+    """One warm call of ``fn`` under the profiler: its result and
+    :func:`trace_summary` over the call's host wall (the profiler's host
+    cost included), with the count of kernels the call ran."""
+    wall = []
+
+    def timed():
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+        return out
+
+    out, events = device_trace(timed, name)
+    return out, {**trace_summary(events, wall[0]),
+                 "kernels": sum(1 for e in events if e[0] == "kernel")}
+
+
+def thread_cpu_s() -> dict:
+    """``(name, CPU seconds)`` (user + system) of each thread of this
+    process, by native thread id, from ``/proc/self/task``."""
+    tick = os.sysconf("SC_CLK_TCK")
+    out = {}
+    for task in Path("/proc/self/task").iterdir():
+        try:
+            stat = (task / "stat").read_text()
+        except OSError:  # the thread has ended
+            continue
+        name, rest = stat.split("(", 1)[1].rsplit(")", 1)
+        fields = rest.split()
+        out[int(task.name)] = (name, (int(fields[11]) + int(fields[12])) / tick)
+    return out
+
+
+def launch_us(dev, n=2000) -> float:
+    """Host microseconds a small eager CUDA op takes to launch: ``n``
+    in-place adds on one element, back to back, then one sync."""
+    t = torch.zeros(1, device=dev)
+    t.add_(1)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        t.add_(1)
+    torch.cuda.synchronize(dev)
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def run_context(dev) -> dict:
+    """What the process holds besides the phase about to run: its threads,
+    torch's intra-op threads, the objects the garbage collector tracks, the
+    caching allocator's state, and the profiler windows opened so far; and
+    how fast its host launches an op (:func:`launch_us`)."""
+    stats = torch.cuda.memory_stats()
+    rss = re.search(r"VmRSS:\s+(\d+) kB", Path("/proc/self/status").read_text())
+    return {
+        "launch_us": launch_us(dev),
+        "rss_gib": int(rss.group(1)) / 2**20,
+        "os_thread_names": sorted(n for n, _ in thread_cpu_s().values()),
+        "python_threads": sorted(t.name for t in threading.enumerate()),
+        "os_threads": len(os.listdir("/proc/self/task")),
+        "torch_threads": torch.get_num_threads(),
+        "gc_tracked_objects": len(gc.get_objects()),
+        "cuda_allocated_gib": stats.get("allocated_bytes.all.current", 0) / 2**30,
+        "cuda_reserved_gib": stats.get("reserved_bytes.all.current", 0) / 2**30,
+        "cuda_segments": stats.get("segment.all.current", 0),
+        "cuda_alloc_retries": stats.get("num_alloc_retries", 0),
+        "profiler_windows_before": PROFILED_WINDOWS[0],
+    }
+
+
+def timed_steps(step, n) -> dict:
+    """``step(0) .. step(n - 1)``, each timed by CUDA events (host cost
+    included), with the CPU seconds of the calling thread and of every
+    other thread of the process, and the time the garbage collector ran."""
+    me = threading.get_native_id()
+    gc_s, gc_t0 = [], []
+
+    def on_gc(phase, _info):
+        if phase == "start":
+            gc_t0.append(time.perf_counter())
+        elif gc_t0:
+            gc_s.append(time.perf_counter() - gc_t0.pop())
+
+    gc.callbacks.append(on_gc)
+    cpu0 = thread_cpu_s()
+    times = []
+    try:
+        for s in range(n):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            step(s)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+    finally:
+        gc.callbacks.remove(on_gc)
+    cpu1 = thread_cpu_s()
+    others = {}
+    for t, (name, c) in cpu1.items():
+        if t != me:
+            others[name] = others.get(name, 0.0) + c - cpu0.get(t, (name, 0.0))[1]
+    return {
+        "step_ms": times, "step_ms_median": statistics.median(times[1:]),
+        "cpu_s_caller": cpu1[me][1] - cpu0[me][1],
+        "cpu_s_other_threads": sum(others.values()),
+        "cpu_s_by_other_thread": {n: c for n, c in sorted(others.items()) if c > 0},
+        "gc_collections": len(gc_s), "gc_ms": sum(gc_s) * 1e3,
+    }
+
+
+def phase_train(dev, counters) -> dict:
+    """Training on the card, as a user drives it; no kernel launches (the
+    reference's training reaches no ``pallas_call``, and no hand-written
+    kernel has a backward).
+
+    GNN: ``compile`` on cora (GCN 1433 -> 16 -> 8, the searched schedule,
+    the eager tier), then ``Program.train_step`` for 2 epochs x 20 steps at
+    lr 0.05 (``examples/train_gnn_dataflow.py``'s defaults): the second
+    epoch builds nothing, the loss falls, step 1 is within 2e-4 of the same
+    step on the CPU, and the kernel tier's ``train_step`` raises with the
+    launch counts unmoved.  LM: ``repro_torch.launch.train.main`` at
+    smollm-135m's published widths (batch 8, seq 512): 30 steps with a
+    checkpoint every 10; a copy of its checkpoints without step 30,
+    restarted with the same flags, resumes at 20 and must end
+    ``torch.equal`` to the straight run, parameters and optimizer state;
+    the same step run twice from one state must be bit-identical too.  Step
+    times by CUDA events (host cost included) before and after one
+    profiled step, with what else the process holds (``run_context``) and
+    the CPU time of its other threads; tokens/s, peak memory, and the
+    step's bound: 6 N tokens over the bf16 dense peak."""
+    import contextlib
+    import io
+
+    import repro_torch
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.data import LMDataPipeline
+    from repro_torch.gnn import GNNConfig, make_node_classification_task
+    from repro_torch.graphs import load_dataset
+    from repro_torch.launch import train
+    from repro_torch.models import count_params, init_params
+    from repro_torch.tree import leaf_paths, leaves
+
+    t_phase = time.perf_counter()
+    context = run_context(dev)
+    launches = {k: 0 for k in counters}
+
+    # -- GNN: Program.train_step on cora ------------------------------------
+    cora, spec = load_dataset("cora")
+    cfg = GNNConfig("gcn", f_in=spec.n_features, hidden=16, n_classes=8)
+    prog = repro_torch.compile(cfg, graph=cora, objective="cycles", device=dev)
+    x, labels, mask = make_node_classification_task(cora, spec.n_features, 8, device=dev)
+    params = prog.init(torch.Generator().manual_seed(0))
+    first = [{k: v.cpu() for k, v in layer.items()} for layer in params]
+    reset_counts(counters)
+    losses, builds, step_ms, step1 = [], [], [], None
+    for epoch in range(2):
+        before = repro_torch.trace_count()
+        for _ in range(20):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss, params = prog.train_step(params, x, labels, mask, lr=0.05)
+            end.record()
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            losses.append(float(loss))
+            if step1 is None:
+                step1 = (loss, params)
+        builds.append(repro_torch.trace_count() - before)
+    counts = {k: c.launches for k, c in counters.items()}
+    check(builds[1] == 0, f"GNN train: the second epoch built {builds[1]} executables")
+    check(losses[-1] < losses[0], f"GNN train: loss {losses[0]} -> {losses[-1]}")
+    check(all(n == 0 for n in counts.values()), f"GNN train launched kernels: {counts}")
+    cpu = prog.bind(cora, device="cpu")
+    loss_c, new_c = cpu.train_step(first, x.cpu(), labels.cpu(), mask.cpu(), lr=0.05)
+    err = abs(float(step1[0]) - float(loss_c))
+    for a, b in zip(step1[1], new_c):
+        for k in a:
+            torch.testing.assert_close(a[k].cpu(), b[k], **TOL_PATH)
+            err = max(err, float((a[k].cpu() - b[k]).abs().max()))
+    check(err <= 2e-4, f"GNN train: step 1 differs from the CPU's by {err}")
+    kernel_tier = prog.degraded(use_pallas=True)
+    reset_counts(counters)
+    try:
+        kernel_tier.train_step(params, x, labels, mask)
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "GNN train: the kernel tier's train_step did not raise")
+    check(all(c.launches == 0 for c in counters.values()),
+          "GNN train: the refused kernel-tier step launched a kernel")
+    gnn = {"phase": "train", "model": "gcn cora", "dims": cfg.dims, "layers": tiers(prog),
+           "steps": len(losses), "lr": 0.05, "builds_per_epoch": builds,
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "step_ms_median_warm": statistics.median(step_ms[1:]),
+           "step_ms_first": step_ms[0], "step1_max_abs_err_vs_cpu": err,
+           "kernel_tier_refused": True, "launches": counts}
+    gnn_params = params
+
+    # -- LM: launch.train.main at smollm-135m's published widths ------------
+    arch, batch, seq = "smollm-135m", 8, 512
+    lm = get_config(arch)
+    root = Path(__file__).resolve().parent / "build" / "train_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    flags = ["--arch", arch, "--batch", str(batch), "--seq", str(seq),
+             "--checkpoint-every", "10", "--steps", "30"]
+    finals = {}
+
+    def run(label, ckdir):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            code = train.main(flags + ["--checkpoint-dir", str(ckdir)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(code == 0, f"LM train {label}: main returned {code}")
+        line = [ln for ln in out.getvalue().splitlines() if ln.startswith("FINAL")]
+        check(len(line) == 1, f"LM train {label}: no FINAL line")
+        print(f"train {label}: {line[0]} ({wall:.3f} s)", flush=True)
+        vals = dict(kv.split("=") for kv in line[0].split()[1:])
+        finals[label] = {k: float(v) for k, v in vals.items()} | {"wall_s": wall}
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    run("straight 30", root / "straight")
+    # a run preempted after its step-20 checkpoint, restarted as it was
+    shutil.copytree(root / "straight", root / "resumed")
+    shutil.rmtree(root / "resumed" / "step_30")
+    run("resume 20 to 30", root / "resumed")
+    counts = {k: c.launches for k, c in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    check(all(n == 0 for n in counts.values()), f"LM train launched kernels: {counts}")
+    check(finals["resume 20 to 30"]["steps"] == 10, "LM train: the resume did not start at 20")
+    check(finals["straight 30"]["loss"] < finals["straight 30"]["first"],
+          "LM train: the loss did not fall")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(lm, gen, dev)
+    init_opt, step_fn = train.build_trainer(lm, lr=3e-4, total_steps=30)
+    like = {"params": params, "opt": init_opt(params), "data": {"seed": 0, "step": 0}}
+    got = {k: Checkpointer(root / k).restore(like, step=30) for k in ("resumed", "straight")}
+    differ = [
+        "/".join(map(str, path))
+        for (path, a), b in zip(leaf_paths(got["resumed"]), leaves(got["straight"]))
+        if not torch.equal(a, b)
+    ]
+    shutil.rmtree(root, ignore_errors=True)
+    del got
+    # the same step twice from one state (the embedding's gather, the
+    # cuBLAS products, every reduction of the backward)
+    data = LMDataPipeline(lm, batch, seq, seed=0, device=dev)
+    opt = init_opt(params)
+    twice = [step_fn(params, opt, None, data.peek(0)) for _ in range(2)]
+    repeat_differ = [
+        "/".join(map(str, path))
+        for (path, a), b in zip(leaf_paths(twice[0][1]), leaves(twice[1][1]))
+        if not torch.equal(a, b)
+    ]
+    del twice
+    # warm step times before and after one profiled step
+    state = {"params": params, "opt": opt}
+
+    def lm_step(s):
+        loss, state["params"], state["opt"], _ = step_fn(
+            state["params"], state["opt"], None, data.peek(s))
+        return loss
+
+    launch_before = launch_us(dev)
+    untraced = timed_steps(lm_step, 6)
+    loss, lm_trace = traced_step(lambda: lm_step(6), "train_lm")
+    after_trace = timed_steps(lambda s: lm_step(7 + s), 6)
+    check(bool(torch.isfinite(loss)), "LM train: non-finite loss")
+    ms = untraced["step_ms_median"]
+    n = count_params(state["params"])
+    bound = 6 * n * batch * seq / PEAK_OPS[torch.bfloat16] * 1e3
+    emit({"phase": "train", "model": arch, "depth": lm.n_layers, "d_model": lm.d_model,
+          "vocab": lm.vocab, "dtype": lm.dtype, "params": n, "batch": batch, "seq": seq,
+          "runs": finals, "resumed_equals_straight": not differ,
+          "leaves_differing": differ[:8], "n_leaves_differing": len(differ),
+          "repeat_step_bit_identical": not repeat_differ,
+          "repeat_leaves_differing": repeat_differ[:8], "context": context,
+          "launch_us_before_steps": launch_before,
+          "step_ms_median": ms, "step_ms": untraced["step_ms"],
+          "tokens_per_s": batch * seq / ms * 1e3, "untraced": untraced,
+          "after_trace": after_trace,
+          "tokens_per_s_after_trace": batch * seq / after_trace["step_ms_median"] * 1e3,
+          "bound_ms_6NT_bf16": bound, "bound_share": bound / ms,
+          "peak_memory_gib": peak_gb, "trace": lm_trace, "launches": counts,
+          "card": card_line(),
+          "ok": not differ})
+    check(not differ, f"LM train: resumed and straight runs differ in {len(differ)} "
+          f"leaves, first {differ[:4]}")
+    del params, opt, data, state
+    torch.cuda.empty_cache()
+    _, gnn["trace"] = traced_step(
+        lambda: prog.train_step(gnn_params, x, labels, mask, lr=0.05), "train_gnn")
+    emit(gnn | {"ok": True})
+    for k in launches:
+        launches[k] += counts[k]
+    print(f"train phase wall {time.perf_counter() - t_phase:.3f} s", flush=True)
+    return launches
+
+
 def phase_gemm(dev, counters) -> dict:
     """The dataflow GEMM's entry point as a user calls it: ``gemm`` on
     cora's layer-0 combination, once per dataflow."""
@@ -1472,6 +1798,10 @@ def phase_lm_serve(dev, counters, batch=4, prompt_len=1024, new_tokens=32) -> di
 
 
 def main() -> int:
+    only = sys.argv[1:]
+    if only not in ([], ["--only", "train"]):
+        print("usage: python3 chip_smoke.py [--only train]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1490,12 +1820,16 @@ def main() -> int:
     torch.cuda.set_device(dev)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
-    phase_build([spmm_ops.LIBRARY, fused_ops.LIBRARY, flash_ops.LIBRARY,
-                 gemm_ops.LIBRARY])
-
     counters = {"spmm": spmm_ops.spmm, "fused_agg_cmb": fused_ops.fused_agg_cmb,
                 "flash_attention": flash_ops.flash_attention,
                 "gemm_dataflow": gemm_ops.gemm}
+    if only:  # the train phase alone, in a process nothing else ran in
+        phase_train(dev, counters)
+        print(card_line(), flush=True)
+        return 0
+    phase_build([spmm_ops.LIBRARY, fused_ops.LIBRARY, flash_ops.LIBRARY,
+                 gemm_ops.LIBRARY])
+
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
     numbers = phase_kernels(dev, flush)
     numbers.update(phase_lm_kernels(dev, flush))
@@ -1506,6 +1840,7 @@ def main() -> int:
              phase_pp(dev, counters, held)]
     shutil.rmtree(held["store_dir"], ignore_errors=True)
     del held
+    runs.append(phase_train(dev, counters))
     runs += [phase_gemm(dev, counters), phase_lm_serve(dev, counters)]
     for run in runs:
         for k, n in run.items():

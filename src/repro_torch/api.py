@@ -42,7 +42,7 @@ import torch
 from .core.cost_model import GNNLayerWorkload
 from .core.hw import AcceleratorConfig, DEFAULT_ACCEL, HWGrid, LatencyModel
 from .core.mapper import TABLE5_NAMES, search_model, search_model_codesign
-from .core.registry import get_objective, lookup_kernel
+from .core.registry import get_objective, has_kernel, lookup_kernel
 from .core.schedule import ModelSchedule, TransitionSpec
 from .core.simulator import (
     ModelStats,
@@ -408,6 +408,100 @@ class Program:
             on_device(labels, dev, "labels"),
             on_device(mask, dev, "mask"),
         )
+
+    def _train_executable(self, n_nodes: int, mesh, lr: float):
+        """One SGD step for one ``("train", n_nodes, mesh, lr)`` key,
+        counted by :func:`trace_count`; :meth:`train_step` keeps it in the
+        forward executables' shared cache once it has run."""
+        _note_trace()
+        kind, specs = self.kind, self.specs
+        kernels = [lookup_kernel(s.policy, s.order, s.use_pallas) for s in specs]
+
+        def exe(params, indices, weights, x, labels, mask):
+            adj = EllAdjacency(indices, weights, n_nodes)
+            with torch.enable_grad():
+                p = [
+                    {k: v.detach().requires_grad_() for k, v in layer.items()}
+                    for layer in params
+                ]
+                h = forward_layers(kind, p, adj, x, specs, mesh=mesh, kernels=kernels)
+                loss = masked_xent_loss(h, labels, mask)
+                leaves = [v for layer in p for v in layer.values()]
+                grads = iter(torch.autograd.grad(loss, leaves))
+            with torch.no_grad():
+                new = [
+                    {k: v - lr * next(grads) for k, v in layer.items()}
+                    for layer in p
+                ]
+            return loss.detach(), new
+
+        return exe
+
+    def train_step(self, params, x, labels, mask, *, lr: float = 0.05, mesh=None):
+        """One SGD step (loss, grad, parameter update) under the compiled
+        schedule; returns ``(loss, new_params)``, detached tensors.
+
+        The step lives in the Program's shared executable cache keyed by
+        ``(shape, mesh, lr)``: later epochs — and same-shape rebinds —
+        build nothing (:func:`trace_count` stays put); a step whose first
+        run raises is not kept, as in :meth:`run`.  Gradients come from
+        autograd through the eager tier's plain PyTorch ops on the bound
+        device, as the reference differentiates its jnp ops.
+
+        No hand-written kernel has a backward, as no Pallas kernel of the
+        reference has one (its ``train_step`` fails to linearize a layer
+        that reaches one).  So a ``use_pallas`` layer whose schedule has a
+        kernel (seq, sp_opt/AC) raises ``ValueError`` here before anything
+        is built or launched; train ``Program.degraded(use_pallas=False)``.
+        The other ``use_pallas`` layers run the eager path and train, as
+        in the reference.  A ``pp`` layer on a mesh of two CUDA devices or
+        streams raises ``NotImplementedError``: the two-stream pipeline is
+        not differentiated (ROADMAP, the sharding item).
+        """
+        reached = sorted({
+            f"{s.policy}/{s.order}" for s in self.specs
+            if s.use_pallas and has_kernel(s.policy, s.order, True)
+        })
+        if reached:
+            raise ValueError(
+                f"train_step: the kernel tier's {', '.join(reached)} layers "
+                "run hand-written kernels with no backward, as the "
+                "reference's Pallas kernels have none; train "
+                "program.degraded(use_pallas=False) instead"
+            )
+        adj = self._require_adj()
+        dev = adj.indices.device
+        if len(params) != self.n_layers:
+            raise ValueError(
+                f"program has {self.n_layers} layers but params have "
+                f"{len(params)}"
+            )
+        if mesh is not None:
+            mesh = tuple(mesh)
+            if any(s.policy == "pp" for s in self.specs) and len(mesh) >= 2:
+                from .gnn.pp import mesh_devices
+
+                if any(d.type == "cuda" for d in mesh_devices(mesh)[:2]):
+                    raise NotImplementedError(
+                        "train_step: the two-stream Parallel Pipeline on a "
+                        "CUDA mesh is not differentiated yet (ROADMAP Queue 1, "
+                        "the sharding item); train with mesh=None"
+                    )
+        for i, layer in enumerate(params):
+            for k, v in layer.items():
+                on_device(v, dev, f"params[{i}][{k!r}]")
+        key = ("train", adj.n_nodes, mesh, float(lr))
+        exe = self._exec_cache.get(key)
+        fresh = exe is None
+        if fresh:
+            exe = self._train_executable(adj.n_nodes, mesh, float(lr))
+        out = exe(
+            params, adj.indices, adj.weights, on_device(x, dev, "x"),
+            on_device(labels, dev, "labels"), on_device(mask, dev, "mask"),
+        )
+        if fresh:  # kept only once it has run
+            self._exec_cache[key] = exe
+        return out
 
     @property
     def schedule_digest(self) -> str:

@@ -176,6 +176,13 @@ def kernel_policies() -> tuple[str, ...]:
     return tuple(sorted({k[0] for k in _KERNELS}))
 
 
+def has_kernel(policy: str, order: str, use_pallas: bool) -> bool:
+    """Whether a path is registered under exactly this key, without
+    :func:`lookup_kernel`'s fallback to the eager path: with
+    ``use_pallas=True``, whether the layer reaches a hand-written kernel."""
+    return (policy, order, bool(use_pallas)) in _KERNELS
+
+
 def lookup_kernel(policy: str, order: str, use_pallas: bool = False) -> Callable:
     """Resolve the executable path for an ``ExecSpec``.
 

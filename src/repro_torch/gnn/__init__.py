@@ -17,5 +17,6 @@ from .model import (
     gnn_forward,
     gnn_loss,
     init_gnn,
+    make_node_classification_task,
     masked_xent_loss,
 )

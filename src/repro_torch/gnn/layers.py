@@ -111,7 +111,19 @@ def aggregate_band(
     row's sum does not depend on the band's row count (a batched product
     may pick its reduction from it); and zero slots past a row's last
     real one only add exact zeros, so the sum does not depend on D either.
+
+    It is differentiable: when autograd needs it, the same forward runs
+    inside :class:`_AggregateBand`, whose backward scatters ``w * g`` back
+    onto the gathered rows of ``x``; the forward's bits are the same
+    either way.
     """
+    if torch.is_grad_enabled() and (weights.requires_grad or x.requires_grad):
+        return _AggregateBand.apply(indices, weights, x)
+    return _aggregate_band(indices, weights, x)
+
+
+def _aggregate_band(indices, weights, x) -> torch.Tensor:
+    """The pairwise-tree forward of :func:`aggregate_band` (no autograd)."""
     b, d = indices.shape
     dt = torch.promote_types(weights.dtype, x.dtype)
     width = 1 << max(d - 1, 0).bit_length()
@@ -125,6 +137,34 @@ def aggregate_band(
         width //= 2
         terms[:, :width] += terms[:, width:2 * width]
     return terms[:, 0]
+
+
+class _AggregateBand(torch.autograd.Function):
+    """:func:`aggregate_band` with a backward: ``dx[idx[v, d]] += w[v, d] *
+    g[v]`` and ``dw[v, d] = g[v] . x[idx[v, d]]``."""
+
+    @staticmethod
+    def forward(ctx, indices, weights, x):
+        ctx.save_for_backward(indices, weights, x)
+        return _aggregate_band(indices, weights, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        indices, weights, x = ctx.saved_tensors
+        b, d = indices.shape
+        flat = indices.reshape(-1).long()
+        gw = gx = None
+        if ctx.needs_input_grad[1]:
+            rows = x.index_select(0, flat).reshape(b, d, -1).to(g.dtype)
+            gw = (rows * g[:, None, :]).sum(-1).to(weights.dtype)
+        if ctx.needs_input_grad[2]:
+            gx = torch.zeros(x.shape, dtype=g.dtype, device=g.device)
+            gx.index_add_(
+                0, flat,
+                (weights.to(g.dtype)[:, :, None] * g[:, None, :]).reshape(b * d, -1),
+            )
+            gx = gx.to(x.dtype)
+        return None, gw, gx
 
 
 def aggregate_full(adj: EllAdjacency, x: torch.Tensor) -> torch.Tensor:

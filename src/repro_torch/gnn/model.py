@@ -19,9 +19,12 @@ from __future__ import annotations
 import warnings
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..core.schedule import ModelSchedule
+from ..device import resolve_device
+from ..graphs.csr import CSRGraph
 from .layers import LAYER_FNS, EllAdjacency, init_layer, segment_readout
 
 #: set True after the first string-policy shim warning (reset by tests).
@@ -147,3 +150,22 @@ def gnn_forward(
 def gnn_loss(cfg: GNNConfig, params, adj, x, labels, mask, schedule=None):
     logits = gnn_forward(cfg, params, adj, x, schedule=schedule)
     return masked_xent_loss(logits, labels, mask)
+
+
+def make_node_classification_task(
+    g: CSRGraph, f_in: int, n_classes: int, seed: int = 0, device=None
+):
+    """Seeded synthetic node-classification task over a CSR graph:
+    ``(x, labels, mask)`` drawn from numpy ``default_rng(seed)`` exactly as
+    the reference draws them (so both packages train on the same bits),
+    placed on ``device`` (default: the CUDA device)."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(g.n_nodes, f_in)).astype(np.float32)
+    labels = rng.integers(0, n_classes, size=g.n_nodes).astype(np.int32)
+    mask = (rng.random(g.n_nodes) < 0.3).astype(np.float32)
+    return (
+        torch.as_tensor(x, device=dev),
+        torch.as_tensor(labels, device=dev),
+        torch.as_tensor(mask, device=dev),
+    )

@@ -93,7 +93,19 @@ def row_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     It is one library call a tile, so it is host-bound on the card: the
     eager tier uses it; the kernel tier's products run the
     ``gemm_dataflow`` kernel, one launch.
+
+    It is differentiable: when autograd needs it, the same tiled forward
+    runs inside :class:`_RowMatmul`, whose backward gives ``dx`` through
+    the same tiles (``row_matmul(g, w.T)``) and ``dw = x.T @ g``; the
+    forward's bits are the same either way.
     """
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _RowMatmul.apply(x, w)
+    return _row_matmul(x, w)
+
+
+def _row_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The tiled forward of :func:`row_matmul` (no autograd)."""
     tile = ROW_TILE
     dt = torch.promote_types(x.dtype, w.dtype)
     x, w = x.to(dt), w.to(dt)
@@ -107,6 +119,46 @@ def row_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         pad[: n - whole] = x[whole:]
         out[whole:] = torch.mm(pad, w)[: n - whole]
     return out
+
+
+class _RowMatmul(torch.autograd.Function):
+    """:func:`row_matmul` with a backward."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _row_matmul(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = _row_matmul(g, w.to(g.dtype).T).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            gw = (x.to(g.dtype).T @ g).to(w.dtype)
+        return gx, gw
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when autograd would have to differentiate through a kernel.
+
+    No hand-written kernel has a backward, as none of the reference's
+    Pallas kernels has one (its ``train_step`` refuses the Pallas tier).
+    A kernel's output carries no ``grad_fn``, so a parameter that fed only
+    the kernel would get no gradient and never move: the wrappers call this
+    before they dispatch (to the kernel or, for a CPU tensor, to its plain
+    version) and refuse instead.
+    """
+    if torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors
+    ):
+        raise RuntimeError(
+            f"{name}: the hand-written kernel has no backward (the "
+            "reference's Pallas kernel has none either); call it under "
+            "torch.no_grad() or train on the eager tier "
+            "(Program.degraded(use_pallas=False))"
+        )
 
 
 def measure_wall(

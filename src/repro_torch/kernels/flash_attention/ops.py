@@ -25,7 +25,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..common import DTYPE_CODES, CudaLibrary
+from ..common import DTYPE_CODES, CudaLibrary, refuse_grad
 from .ref import attend_chunked, flash_attention_ref
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -127,6 +127,7 @@ def flash_attention(q, k, v, causal=False, block_q=128, block_k=128):
     """q: (B, Hq, Sq, D); k/v: (B, Hkv, Sk, D) with Hq % Hkv == 0.
     Returns (B, Hq, Sq, D) in q's dtype."""
     _check("flash_attention", q, k, v)
+    refuse_grad("flash_attention", q, k, v)
     sq, sk = q.shape[2], k.shape[2]
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal, block_k)
@@ -146,6 +147,7 @@ def attend(q, k, v, q_pos, k_pos, window: int = 0, chunk: int = 512):
     ``k_pos[j] <= q_pos[i]`` (and ``k_pos[j] > q_pos[i] - window`` when
     ``window``).  Returns (B, Sq, Hq, D)."""
     _check("attend", q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    refuse_grad("attend", q, k, v)
     if q.device.type == "cpu":
         return attend_chunked(q, k, v, q_pos, k_pos, window, chunk)
     if q.device.type != "cuda":

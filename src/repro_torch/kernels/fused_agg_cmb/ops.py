@@ -11,7 +11,7 @@ from pathlib import Path
 
 import torch
 
-from ..common import DTYPE_CODES, CudaLibrary, check_operands
+from ..common import DTYPE_CODES, CudaLibrary, check_operands, refuse_grad
 from .ref import fused_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -41,6 +41,7 @@ def plan(indices, x, w) -> dict:
 def fused_agg_cmb(indices, weights, x, w, band_size=128, block_f=None):
     """out[v] = (sum_d weights[v, d] * x[indices[v, d]]) @ w  — (V_pad, G)."""
     check_operands("fused_agg_cmb", indices, weights, x, w)
+    refuse_grad("fused_agg_cmb", weights, x, w)
     if x.device.type == "cpu":
         return fused_ref(indices, weights, x, w)
     if x.device.type != "cuda":

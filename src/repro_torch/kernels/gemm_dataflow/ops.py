@@ -20,7 +20,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..common import DTYPE_CODES, CudaLibrary, cdiv
+from ..common import DTYPE_CODES, CudaLibrary, cdiv, refuse_grad
 from .ref import gemm_ref
 
 DATAFLOWS = ("output_stationary", "weight_stationary", "input_stationary")
@@ -111,6 +111,7 @@ def gemm(x, w, dataflow="output_stationary", block_v=128, block_g=128,
         raise ValueError("gemm: block sizes must be positive")
     if x.device != w.device:
         raise ValueError("gemm: operands on several devices")
+    refuse_grad("gemm", x, w)
     if x.device.type == "cpu":
         return gemm_ref(x, w)
     if x.device.type != "cuda":

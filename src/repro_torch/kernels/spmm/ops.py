@@ -13,7 +13,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..common import DTYPE_CODES, CudaLibrary, check_operands
+from ..common import DTYPE_CODES, CudaLibrary, check_operands, refuse_grad
 from .ref import spmm_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -39,6 +39,7 @@ def plan(indices, x) -> dict:
 def spmm(indices, weights, x, block_v=128, block_f=128):
     """out[v] = sum_d weights[v, d] * x[indices[v, d]]  — (V_pad, F)."""
     check_operands("spmm", indices, weights, x)
+    refuse_grad("spmm", weights, x)
     if x.device.type == "cpu":
         return spmm_ref(indices, weights, x)
     if x.device.type != "cuda":

@@ -1,1 +1,1 @@
-"""Entry points of the port's LM substrate (serving so far)."""
+"""Entry points of the port's LM substrate: serving and training."""

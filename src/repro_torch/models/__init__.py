@@ -1,5 +1,6 @@
 """The LM substrate (the port of :mod:`repro.models`): dense ``attn``
-blocks so far, with the flash-attention kernel on the prefill path."""
+blocks so far, with the flash-attention kernel on the prefill path and
+``lm_loss`` (plain versions) for training."""
 from .config import ArchConfig, MoEConfig
 from .stubs import make_inputs, synthetic_embeddings, synthetic_tokens
 from .transformer import (
@@ -8,6 +9,7 @@ from .transformer import (
     forward,
     init_cache,
     init_params,
+    lm_loss,
     params_from_numpy,
     prefill,
 )

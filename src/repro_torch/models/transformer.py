@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..tree import leaves
 from .attention import KVCache, attention, decode_attention, init_attention
 from .config import ArchConfig
 from .layers import (
@@ -36,7 +37,7 @@ def _check_kind(kind: str) -> None:
     if kind not in PORTED_KINDS:
         raise NotImplementedError(
             f"block kind {kind!r} is not ported yet (the port runs {PORTED_KINDS}; "
-            "see ROADMAP Queue 1 item 9)")
+            "see ROADMAP Queue 1 item 5)")
 
 
 # ---------------------------------------------------------------------------
@@ -235,15 +236,22 @@ def prefill(cfg: ArchConfig, params: dict, inputs: torch.Tensor, *,
     return logits, cache
 
 
-def count_params(params) -> int:
-    def leaves(t):
-        if isinstance(t, dict):
-            for v in t.values():
-                yield from leaves(v)
-        elif isinstance(t, (list, tuple)):
-            for v in t:
-                yield from leaves(v)
-        elif t is not None:
-            yield t
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
 
+
+def lm_loss(cfg: ArchConfig, params: dict, batch: dict) -> torch.Tensor:
+    """Causal LM loss.  batch: {"inputs": (B,S) or (B,S,d), "labels": (B,S)}.
+
+    The forward runs the plain versions (``use_kernels=False``): the
+    reference's training forward is its chunked jnp attention, and the
+    flash kernel has no backward.  The log-softmax is taken in float32."""
+    logits, aux = forward(cfg, params, batch["inputs"], use_kernels=False)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, batch["labels"].long()[..., None])[..., 0]
+    return nll.mean() + aux
+
+
+def count_params(params) -> int:
     return sum(int(np.prod(t.shape)) for t in leaves(params))

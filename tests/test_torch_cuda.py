@@ -656,3 +656,73 @@ def test_two_threads_build_a_kernel_once(dev, tmp_path):
         assert not list(tmp_path.glob("*.tmp.*"))
     finally:
         common.set_build_dir(old)
+
+
+def _ring(v=64):
+    src = np.arange(v)
+    return from_edges(v, np.concatenate([src, (src + 1) % v, src]),
+                      np.concatenate([(src + 1) % v, src, (src * 7) % v]))
+
+
+@pytest.mark.parametrize("policy,order", [("sp_opt", "AC"), ("seq", "CA"), ("pp", "AC")])
+def test_train_step_on_the_card_matches_the_cpu(dev, policy, order):
+    """One GNN SGD step on the card (the eager tier through autograd)
+    within 2e-4 of the same step on the CPU, from the same weights; a warm
+    step builds nothing and launches no kernel."""
+    from repro_torch.core.cost_model import GNNLayerWorkload
+    from repro_torch.core.schedule import ModelSchedule
+    from repro_torch.gnn import make_node_classification_task
+
+    g, dims = _ring(), [(24, 16), (16, 4)]
+    wls = [GNNLayerWorkload(g.nnz, fi, fo) for fi, fo in dims]
+    sched = ModelSchedule.from_policies(policy, order, dims, band_size=32)
+    progs = {d: repro_torch.compile(wls, graph=g, schedule=sched, device=d)
+             for d in ("cpu", dev)}
+    params = progs["cpu"].init(torch.Generator().manual_seed(0))
+    out = {}
+    for d, prog in progs.items():
+        task = make_node_classification_task(g, 24, 4, device=d)
+        p = [{k: v.to(d) for k, v in layer.items()} for layer in params]
+        loss, new = prog.train_step(p, *task)
+        builds = repro_torch.trace_count()
+        for kern in (spmm, fused_agg_cmb, gemm):
+            kern.launches = 0
+        loss2, _ = prog.train_step(new, *task)
+        assert repro_torch.trace_count() == builds
+        assert spmm.launches == fused_agg_cmb.launches == gemm.launches == 0
+        assert float(loss2) < float(loss)
+        out[d] = (loss, new)
+    torch.testing.assert_close(out[dev][0].cpu(), out["cpu"][0], rtol=2e-4, atol=2e-4)
+    for a, b in zip(out[dev][1], out["cpu"][1]):
+        for k in a:
+            torch.testing.assert_close(a[k].cpu(), b[k], rtol=2e-4, atol=2e-4)
+
+
+def test_lm_training_resumes_bitwise_on_the_card(dev, tmp_path):
+    """3 AdamW steps + save + restore + 3 steps == 6 straight steps, bit
+    for bit, on the card (bf16 parameters, f32 optimizer state)."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.data import LMDataPipeline
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.tree import leaves
+
+    cfg = get_config("smollm-135m").reduced(dtype="bfloat16")
+    data = LMDataPipeline(cfg, 4, 64, seed=1, device=dev)
+    init_opt, step = build_trainer(cfg, lr=1e-3, total_steps=6)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    opt = init_opt(params)
+
+    def run(p, o, steps):
+        for s in steps:
+            _, p, o, _ = step(p, o, None, data.peek(s))
+        return p, o
+
+    p1, o1 = run(params, opt, range(6))
+    p2, o2 = run(params, opt, range(3))
+    ck = Checkpointer(tmp_path / "ck")
+    ck.save(3, {"params": p2, "opt": o2})
+    state = ck.restore({"params": p2, "opt": o2})
+    assert leaves(state["params"])[0].device == leaves(p2)[0].device
+    p3, o3 = run(state["params"], state["opt"], range(3, 6))
+    assert all(torch.equal(a, b) for a, b in zip(leaves(p1), leaves(p3)))
+    assert all(torch.equal(a, b) for a, b in zip(leaves(o1), leaves(o3)))

@@ -21,7 +21,9 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "repro_torch.kernels.flash_attention, repro_torch.kernels.gemm_dataflow, "
         "repro_torch.models, repro_torch.configs, repro_torch.launch.serve, "
         "repro_torch.runtime, repro_torch.runtime.scheduler, repro_torch.gnn.pp, "
-        "repro_torch.graphs.partition, repro_torch.core.calibrate\n"
+        "repro_torch.graphs.partition, repro_torch.core.calibrate, "
+        "repro_torch.launch.train, repro_torch.optim, repro_torch.data, "
+        "repro_torch.checkpoint\n"
         "import repro_torch.configs.gcn_paper\n"
         "from repro_torch.configs import all_configs\n"
         "all_configs()\n"

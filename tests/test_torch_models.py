@@ -309,7 +309,7 @@ def test_params_from_numpy_carries_bf16_weights():
                                   "granite-moe-1b-a400m"])
 def test_unported_block_kinds_raise(arch):
     cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         tf.init_params(cfg, torch.Generator(), device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
         tf.apply_block(cfg, cfg.block_pattern[0], {}, torch.zeros(1, 2, 64),
