@@ -2,7 +2,8 @@
 any failure.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --only train   # phase 8 alone, in a fresh process
+    python3 chip_smoke.py --only train         # phase 8 alone, in a fresh process
+    python3 chip_smoke.py --only lm_families   # phase 11 alone, in a fresh process
 
 Phases, one JSON line each (no phase's error is caught):
 
@@ -22,7 +23,9 @@ Phases, one JSON line each (no phase's error is caught):
                 ``torch.sparse.mm``; the fused kernel also beside the
                 two-call pair ``torch.sparse.mm(csr, x) @ w``,
                 ``library_pair_ms``); flash attention at the reference's test shapes,
-                smollm-135m prefill (f32, bf16), a ragged S and D = 128;
+                smollm-135m prefill (f32, bf16), a ragged S, D = 128, and
+                recurrentgemma's local blocks (D 256, MQA 10 / 1, S 4096,
+                window 2048, bf16, beside SDPA under the same boolean mask);
                 ``gemm`` under each dataflow at the reference's test shapes,
                 cora's layer-0 combination, smollm's ``w_gate``, a bf16
                 shape TMA refuses and one past a resident slab.  A kernel
@@ -90,7 +93,11 @@ Phases, one JSON line each (no phase's error is caught):
                 bit-identical; warm step times before and after one
                 profiled step, with the process's threads, allocator and
                 garbage-collector state at the phase's start; tokens/s,
-                peak memory, one profiled step of each model.
+                peak memory, one profiled step of each model;
+                granite-moe-1b-a400m at its published widths (batch 2, seq
+                512): two steps, the second also run from the step-1 state
+                saved and restored by the ``Checkpointer``, ``torch.equal``
+                to the straight one.
 9. gemm       — the dataflow GEMM's own entry point, the public op
                 ``gemm``, called once per dataflow on cora's layer-0
                 combination (on the model path it is the kernel tier's
@@ -100,8 +107,17 @@ Phases, one JSON line each (no phase's error is caught):
                 the prefill logits held against the plain-version twin in
                 f32 and in bf16, then a depth-2 forward of the other dense
                 archs at full width against their twins.
+11. lm_families — granite-moe-1b-a400m, recurrentgemma-2b and
+                xlstm-1.3b at full published width in bf16 through
+                ``generate`` (batch 2, 128-token prompts, 8 greedy
+                tokens): flash launches a forward equal to the config's
+                attention layers (24, 8, 0), prefill logits against the
+                plain route and 8 decode steps against the prefill (relative
+                L2), prefill / replay / decode walls against their bounds,
+                peak memory; recurrentgemma also at 1 x 4096 tokens, where
+                its 2048 window masks.
 
-Launch counts are set to 0 just before phases 3-10 (each part of the engine
+Launch counts are set to 0 just before phases 3-11 (each part of the engine
 and async phases that serves the main path) and read just after;
 the ``{"kernels": [...]}`` line reports them.  The last line is
 ``{"ok": true, "device": {...}}``; it is printed only when every phase
@@ -140,6 +156,20 @@ LM_BF16_REL_L2 = 3e-2
 # output's bf16 rounding and P's give ~2e-3-6e-3; a key block dropped or
 # counted twice moves a late row by far more.  Held beside TOL_BF16.
 FLASH_ROW_REL_L2 = 1e-2
+# a float32 decode step against the float32 prefill at the same position,
+# as a relative L2 error: two sum orders of the same f32 function (flash
+# and the cache's plain attention, the doubling and the stepwise RG-LRU
+# scan, the chunkwise and the recurrent mLSTM); a state not carried between
+# steps moves the logits by order 1.  xlstm-1.3b at random init amplifies
+# a rounding through its 48 exponentially gated blocks, more with each
+# position: the reference's own decode and forward differ by up to 1.2e-4
+# at d_model 512 x 16 layers in f32 on a CPU, and the port's by up to
+# 4.8e-3 at full width on the card (first reading), so its limit is 1e-2.
+# In bf16 the MoE's top-8 routing can flip between the two paths and the
+# xLSTM's logits move by ~45% under one-ulp noise on its embeddings (the
+# reference's, on a CPU), so bf16 decode is read, not held.
+DECODE_F32_REL_L2 = {"xlstm-1.3b": 1e-2}
+DECODE_F32_REL_L2_DEFAULT = 1e-3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # dense, per s
 
@@ -523,10 +553,12 @@ def gnn_timings(idx, wts, x, w, csr, flush, plain=True) -> dict:
     }
 
 
-def flash_bound(b, hq, hkv, sq, sk, d, dtype, causal) -> tuple[float, str]:
+def flash_bound(b, hq, hkv, sq, sk, d, dtype, causal, window=0) -> tuple[float, str]:
     """Bytes: q, k, v read once, out written once.  Operations: 2 D for
-    q.k and 2 D for p.v per (query, key) pair the mask lets through."""
-    pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
+    q.k and 2 D for p.v per (query, key) pair the mask lets through
+    (query i sees keys max(0, i - window + 1) .. i under a window)."""
+    span = lambda i: min(i + 1, sk, window) if window > 0 else min(i + 1, sk)  # noqa: E731
+    pairs = sum(span(i) for i in range(sq)) if causal else sq * sk
     es = torch.tensor([], dtype=dtype).element_size()
     n_bytes = (2 * b * hq * sq * d + 2 * b * hkv * sk * d) * es
     return bound_ms(n_bytes, 4 * d * b * hq * pairs, dtype)
@@ -542,7 +574,13 @@ def phase_lm_kernels(dev, flush) -> dict:
     returns their numbers for the final ``kernels`` line."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref, route
+    from repro_torch.kernels.flash_attention import (
+        attend,
+        attend_chunked,
+        flash_attention,
+        flash_attention_ref,
+        route,
+    )
     from repro_torch.kernels.gemm_dataflow import DATAFLOWS, gemm, gemm_ref, plan
 
     def qkv(b, hq, hkv, sq, sk, d, seed, dtype=torch.float32):
@@ -601,6 +639,45 @@ def phase_lm_kernels(dev, flush) -> dict:
         "case": "smollm_prefill_bf16 (B 4, Hq 9, Hkv 3, S 1024, D 64, causal)",
     }
     emit({"phase": "kernels", "kernel": "flash_attention", "case": "timing", **flash})
+
+    # recurrentgemma-2b's local blocks: D 256, MQA 10 / 1, window 2048, at a
+    # length where the window masks (the model route, positions 0..S-1)
+    b, s_len, hq, hkv, d, win = 1, 4096, 10, 1, 256, 2048
+    q = randn((b, s_len, hq, d), 40, dev).to(torch.bfloat16)
+    k = randn((b, s_len, hkv, d), 41, dev).to(torch.bfloat16)
+    v = randn((b, s_len, hkv, d), 42, dev).to(torch.bfloat16)
+    pos = torch.arange(s_len, dtype=torch.int32, device=dev)
+    out = attend(q, k, v, pos, pos, win)
+    ref = attend_chunked(q, k, v, pos, pos, win)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out).all()), "d256: non-finite output")
+    torch.testing.assert_close(out, ref, **TOL_BF16)
+    ref32 = attend_chunked(q.float(), k.float(), v.float(), pos, pos, win)
+    row = float(((out.float() - ref32).norm(dim=-1) / ref32.norm(dim=-1)).max())
+    check(row <= FLASH_ROW_REL_L2, f"d256: row relative L2 {row} > {FLASH_ROW_REL_L2}")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    i, j = pos.long()[:, None], pos.long()[None, :]
+    mask = (j <= i) & (j > i - win)  # SDPA's boolean mask: True = attend
+    fb, fby = flash_bound(b, hq, hkv, s_len, s_len, d, torch.bfloat16, True, win)
+    d256 = {
+        **timed(lambda: attend(q, k, v, pos, pos, win),
+                lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                       enable_gqa=True),
+                lambda: attend_chunked(q, k, v, pos, pos, win), flush),
+        "bound_ms": fb, "bound_by": fby,
+        "max_abs_err": float((out.float() - ref.float()).abs().max()),
+        "row_rel_l2_vs_f32": row,
+        "route": route(torch.bfloat16, [(t.shape, t.stride()) for t in (qt, kt, vt, qt)],
+                       [t.data_ptr() for t in (q, k, v, q)]),
+    }
+    check(d256["route"] == "tensor_cores", f"d256 took the {d256['route']} route")
+    emit({"phase": "kernels", "kernel": "flash_attention",
+          "case": "recurrentgemma_local_d256_bf16 (B 1, Hq 10, Hkv 1, S 4096, D 256, "
+                  "window 2048)", "tol": TOL_BF16, "row_rel_l2_limit": FLASH_ROW_REL_L2,
+          **d256, "ok": True})
+    flash["cases"] = {"smollm_prefill_bf16": {k: flash[k] for k in flash if k != "case"},
+                      "recurrentgemma_local_d256_bf16": d256}
+    del q, k, v, out, ref, ref32, mask
 
     gemm_shapes = [(f"test_kernels_{v}x{f}x{g}_blk32", (v, f, g), torch.float32, 32,
                     TOL_GEMM)
@@ -1677,6 +1754,7 @@ def phase_train(dev, counters) -> dict:
           f"leaves, first {differ[:4]}")
     del params, opt, data, state
     torch.cuda.empty_cache()
+    moe_train(dev, counters)
     _, gnn["trace"] = traced_step(
         lambda: prog.train_step(gnn_params, x, labels, mask, lr=0.05), "train_gnn")
     emit(gnn | {"ok": True})
@@ -1684,6 +1762,80 @@ def phase_train(dev, counters) -> dict:
         launches[k] += counts[k]
     print(f"train phase wall {time.perf_counter() - t_phase:.3f} s", flush=True)
     return launches
+
+
+def moe_train(dev, counters, batch=2, seq=512) -> None:
+    """granite-moe-1b-a400m at its published widths (bf16, 32 experts top
+    8): two AdamW steps through ``launch.train``'s step (``lm_loss`` with
+    the router's aux loss, the ragged expert products and their
+    backward), the state after step 1 saved and restored by the
+    ``Checkpointer``, and step 2 from the restored state ``torch.equal`` to
+    step 2 of the straight run, parameters and optimizer state."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.data import LMDataPipeline
+    from repro_torch.launch import train
+    from repro_torch.models import count_params, init_params
+    from repro_torch.tree import leaf_paths, leaves
+
+    arch = "granite-moe-1b-a400m"
+    cfg = get_config(arch)
+    root = Path(__file__).resolve().parent / "build" / "train_moe_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    n = count_params(params)
+    init_opt, step_fn = train.build_trainer(cfg, lr=3e-4, total_steps=2)
+    data = LMDataPipeline(cfg, batch, seq, seed=0, device=dev)
+    step_ms, losses = [], []
+
+    def step(p, o, s):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss, p, o, _ = step_fn(p, o, None, data.peek(s))
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(loss))
+        check(bool(torch.isfinite(loss)), f"{arch} train: non-finite loss")
+        return p, o
+
+    params, opt = step(params, init_opt(params), 0)
+    ck = Checkpointer(root)
+    t0 = time.perf_counter()
+    ck.save(1, {"params": params, "opt": opt})
+    save_s = time.perf_counter() - t0
+    straight = step(params, opt, 1)
+    del params, opt
+    t0 = time.perf_counter()
+    state = ck.restore({"params": straight[0], "opt": straight[1]}, step=1)
+    restore_s = time.perf_counter() - t0
+    shutil.rmtree(root, ignore_errors=True)
+    resumed = step(state["params"], state["opt"], 1)
+    del state
+    counts = {k: c.launches for k, c in counters.items()}
+    differ = ["/".join(map(str, path))
+              for (path, a), b in zip(leaf_paths({"p": resumed[0], "o": resumed[1]}),
+                                      leaves({"p": straight[0], "o": straight[1]}))
+              if not torch.equal(a, b)]
+    emit({"phase": "train", "model": arch, "depth": cfg.n_layers, "d_model": cfg.d_model,
+          "experts": [cfg.moe.n_experts, cfg.moe.top_k], "dtype": cfg.dtype, "params": n,
+          "batch": batch, "seq": seq, "losses": losses, "step_ms": step_ms,
+          "tokens_per_s_step2": batch * seq / step_ms[1] * 1e3,
+          "bound_ms_6NT_bf16": 6 * cfg.active_param_count() * batch * seq
+          / PEAK_OPS[torch.bfloat16] * 1e3,
+          "checkpoint_save_s": save_s, "checkpoint_restore_s": restore_s,
+          "resumed_step_equals_straight": not differ, "leaves_differing": differ[:8],
+          "n_leaves_differing": len(differ),
+          "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "launches": counts, "card": card_line(), "ok": not differ})
+    check(all(v == 0 for v in counts.values()), f"{arch} train launched kernels: {counts}")
+    check(not differ, f"{arch} train: the resumed step differs in {len(differ)} leaves, "
+          f"first {differ[:4]}")
+    del straight, resumed
+    torch.cuda.empty_cache()
 
 
 def phase_gemm(dev, counters) -> dict:
@@ -1797,10 +1949,155 @@ def phase_lm_serve(dev, counters, batch=4, prompt_len=1024, new_tokens=32) -> di
     return launches
 
 
+#: the block kinds whose prefill runs flash attention (one launch a layer)
+ATTENTION_KINDS = ("attn", "local", "moe")
+
+
+def rel_l2(a, b) -> float:
+    """||a - b|| / ||b|| in float32."""
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def decode_vs_prefill(cfg, params, prompts, logits, n) -> list:
+    """Relative L2 of each of the first ``n`` decode steps' logits against
+    the prefill ``forward``'s at the same position."""
+    from repro_torch.models import decode_step, init_cache
+
+    cache = init_cache(cfg, prompts.shape[0], n, prompts.device)
+    errs = []
+    for i in range(n):
+        step_logits, cache = decode_step(cfg, params, cache, prompts[:, i:i + 1], i)
+        errs.append(rel_l2(step_logits[:, 0], logits[:, i]))
+    return errs
+
+
+def phase_lm_families(dev, counters, batch=2, prompt_len=128, new_tokens=8) -> dict:
+    """The MoE, RG-LRU/local-attention and xLSTM families at full published
+    width in bf16 (granite-moe-1b-a400m, recurrentgemma-2b, xlstm-1.3b),
+    served through ``generate``: batch 2, 128-token prompts, 8 greedy
+    tokens.  Per arch: flash launches in the one prefill ``forward`` equal
+    to its attention layers (from the config's layer kinds); tokens in
+    range; the prefill logits of the kernel route against the plain route
+    by relative L2 (``LM_BF16_REL_L2``); the first 8 decode steps against
+    the prefill, in bf16 (a reading) and in float32 on the same weights
+    (``DECODE_F32_REL_L2``); the prefill, replay and decode walls, the
+    prefill ``forward`` against its analytic bound (``cell_flops`` over the
+    bf16 dense peak) and a decode step against parameter bytes over the
+    memory rate; peak memory.  recurrentgemma also runs one ``forward`` at
+    batch 1 x 4096 tokens, where its 2048 window masks, kernel route
+    against plain."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSuite
+    from repro_torch.kernels.common import measure_wall
+    from repro_torch.launch.analytic import cell_flops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import count_params, forward, init_params, make_inputs
+    from repro_torch.tree import tree_map
+
+    t_phase = time.perf_counter()
+    launches = {k: 0 for k in counters}
+    for arch in ("granite-moe-1b-a400m", "recurrentgemma-2b", "xlstm-1.3b"):
+        t_arch = time.perf_counter()
+        cfg = get_config(arch)
+        n_attn = sum(kind in ATTENTION_KINDS for kind in cfg.layer_kinds)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        n_params = count_params(params)
+        prompts = make_inputs(cfg, batch, prompt_len, seed=0, device=dev)
+        reset_counts(counters)
+        timings = {}
+        toks, lat = generate(cfg, params, prompts, new_tokens, timings=timings)
+        torch.cuda.synchronize()
+        counts = {k: c.launches for k, c in counters.items()}
+        for k in launches:
+            launches[k] += counts[k]
+        check(counts["flash_attention"] == n_attn,
+              f"{arch}: flash_attention launched {counts['flash_attention']} times in "
+              f"one forward of {n_attn} attention layers")
+        check(toks.shape == (batch, new_tokens) and toks.dtype == torch.int32,
+              f"{arch}: generate returned {tuple(toks.shape)} {toks.dtype}")
+        check(bool(((toks >= 0) & (toks < cfg.vocab)).all()), f"{arch}: tokens out of range")
+
+        logits, aux = forward(cfg, params, prompts)
+        plain, _ = forward(cfg, params, prompts, use_kernels=False)
+        finite = bool(torch.isfinite(logits).all()) and bool(torch.isfinite(aux))
+        prefill_err = rel_l2(logits, plain)
+        del plain
+        # decode against the prefill: in float32 on the same weights, where
+        # a routing flip between the two paths (a top-8 of 32 gates within a
+        # bf16 rounding) is rare; the bf16 readings are kept beside it
+        decode_err = {"bf16": decode_vs_prefill(cfg, params, prompts, logits, new_tokens)}
+        del logits
+        cfg32 = cfg.with_(dtype="float32")
+        params32 = tree_map(lambda t: t.float(), params)
+        logits32, _ = forward(cfg32, params32, prompts)
+        decode_err["f32"] = decode_vs_prefill(cfg32, params32, prompts, logits32,
+                                              new_tokens)
+        del logits32, params32
+        decode_limit = DECODE_F32_REL_L2.get(arch, DECODE_F32_REL_L2_DEFAULT)
+        prefill_ms = {route: 1e3 * measure_wall(
+            lambda: forward(cfg, params, prompts, use_kernels=kern), warmup=1, iters=3)
+            for route, kern in (("kernels", True), ("plain", False))}
+        flops = cell_flops(cfg, ShapeSuite("lm_families", prompt_len, batch, "prefill"))
+        bound_ms = flops / PEAK_OPS[torch.bfloat16] * 1e3
+        decode_bound_ms = n_params * 2 / HBM_BYTES_PER_S * 1e3
+        decode_ms = statistics.median(lat) * 1e3
+        rec = {"phase": "lm_families", "arch": arch, "family": cfg.family,
+               "depth": cfg.n_layers, "d_model": cfg.d_model, "head_dim": cfg.head_dim,
+               "heads": [cfg.n_heads, cfg.n_kv_heads], "vocab": cfg.vocab,
+               "dtype": cfg.dtype, "params": n_params, "attention_layers": n_attn,
+               "batch": batch, "prompt_len": prompt_len, "new_tokens": new_tokens,
+               "prefill_s": timings["prefill_s"], "replay_s": timings["replay_s"],
+               "decode_s": timings["decode_s"], "decode_step_ms_median": decode_ms,
+               "prefill_forward_ms_median": prefill_ms,
+               "prefill_flops": flops, "prefill_bound_ms": bound_ms,
+               "prefill_over_bound": prefill_ms["kernels"] / bound_ms,
+               "decode_bound_ms_param_bytes": decode_bound_ms,
+               "decode_over_bound": decode_ms / decode_bound_ms,
+               "launches": counts, "aux_loss": float(aux),
+               "prefill_logits_rel_l2_vs_plain": prefill_err,
+               "decode_vs_prefill_rel_l2": decode_err, "rel_l2_limit": LM_BF16_REL_L2,
+               "f32_decode_rel_l2_limit": decode_limit}
+        if arch == "recurrentgemma-2b":
+            long_in = make_inputs(cfg, 1, 4096, seed=1, device=dev)
+            before = counters["flash_attention"].launches
+            out, _ = forward(cfg, params, long_in)
+            torch.cuda.synchronize()
+            long_launches = counters["flash_attention"].launches - before
+            twin, _ = forward(cfg, params, long_in, use_kernels=False)
+            finite = finite and bool(torch.isfinite(out).all())
+            rec["window_forward"] = {"batch": 1, "seq": 4096, "window": cfg.window,
+                                     "flash_launches": long_launches,
+                                     "logits_rel_l2_vs_plain": rel_l2(out, twin)}
+            del out, twin, long_in
+        rec["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        rec["arch_wall_s"] = time.perf_counter() - t_arch
+        window = rec.get("window_forward", {"flash_launches": n_attn,
+                                            "logits_rel_l2_vs_plain": 0.0})
+        window_ok = (window["flash_launches"] == n_attn
+                     and window["logits_rel_l2_vs_plain"] <= LM_BF16_REL_L2)
+        ok = (finite and prefill_err <= LM_BF16_REL_L2
+              and max(decode_err["f32"]) <= decode_limit and window_ok)
+        emit({**rec, "card": card_line(), "ok": ok})
+        check(finite, f"{arch}: logits or aux loss not finite")
+        check(prefill_err <= LM_BF16_REL_L2,
+              f"{arch}: prefill logits rel L2 {prefill_err} > {LM_BF16_REL_L2}")
+        check(max(decode_err["f32"]) <= decode_limit,
+              f"{arch}: f32 decode vs prefill rel L2 {max(decode_err['f32'])} > "
+              f"{decode_limit}")
+        check(window_ok, f"{arch}: the 4096-token forward: {window}")
+        del params, prompts, aux
+    torch.cuda.empty_cache()
+    print(f"lm_families phase wall {time.perf_counter() - t_phase:.3f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     only = sys.argv[1:]
-    if only not in ([], ["--only", "train"]):
-        print("usage: python3 chip_smoke.py [--only train]", file=sys.stderr)
+    if only not in ([], ["--only", "train"], ["--only", "lm_families"]):
+        print("usage: python3 chip_smoke.py [--only train|lm_families]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1823,8 +2120,8 @@ def main() -> int:
     counters = {"spmm": spmm_ops.spmm, "fused_agg_cmb": fused_ops.fused_agg_cmb,
                 "flash_attention": flash_ops.flash_attention,
                 "gemm_dataflow": gemm_ops.gemm}
-    if only:  # the train phase alone, in a process nothing else ran in
-        phase_train(dev, counters)
+    if only:  # one phase alone, in a process nothing else ran in
+        {"train": phase_train, "lm_families": phase_lm_families}[only[1]](dev, counters)
         print(card_line(), flush=True)
         return 0
     phase_build([spmm_ops.LIBRARY, fused_ops.LIBRARY, flash_ops.LIBRARY,
@@ -1841,7 +2138,8 @@ def main() -> int:
     shutil.rmtree(held["store_dir"], ignore_errors=True)
     del held
     runs.append(phase_train(dev, counters))
-    runs += [phase_gemm(dev, counters), phase_lm_serve(dev, counters)]
+    runs += [phase_gemm(dev, counters), phase_lm_serve(dev, counters),
+             phase_lm_families(dev, counters)]
     for run in runs:
         for k, n in run.items():
             launches[k] += n

@@ -40,10 +40,10 @@
 //    takes a 64-row q tile of one (batch, query head), launched heaviest
 //    first (the last q tiles see the most keys under the causal mask).
 //    The warp after the consumers is the producer: one thread brings q once, then K and V tiles
-//    of 64 keys through a 3-stage TMA ring under full/empty mbarriers (4-D
+//    of 64 keys through a 3-stage (D 256: 2) TMA ring under full/empty mbarriers (4-D
 //    tensor maps over the (D, S, H, B) strides, so the model's (B, S, H, D)
 //    and the op's (B, H, S, D) are read as they lie; D is zero-padded to
-//    64 or 128 by the TMA box).  It decides which key blocks to skip from
+//    64, 128 or 256 by the TMA box).  It decides which key blocks to skip from
 //    the position ranges and hands each stage's block index to the
 //    consumers, flagged when every pair in it is seen (no mask to apply).
 //    The consumer warpgroup computes S = q k^T by wgmma (k is the K-major
@@ -57,12 +57,19 @@
 //    while the softmax waits.  Scores are scaled by scale * log2(e) and
 //    exponentiated with exp2, which is the same function.  Rounding P to
 //    bf16 is the one rounding the plain version (p in f32) does not make.
+//    At D = 256 (recurrentgemma's local blocks, MQA 10 / 1, window 2048)
+//    the O accumulator is 128 f32 registers a thread and the q panels plus
+//    the K/V ring take 165 KB of shared memory in two stages (three would
+//    leave 1.8 KB of the 227 KB a block may take): one CTA an SM, and P V
+//    is two m64n128 products, one per half of O.  This is the simple form
+//    of D = 256; it was not tuned.
 // 2. float32, and bf16 that TMA refuses: CUDA cores (this route was not
 //    redesigned).  One CTA of 256 threads per (batch * q-head, 64-row q
 //    block); q, then each 64-key K/V block, staged in shared memory as f32
 //    (row stride D + 1, so the score loop reads without bank conflicts);
 //    each thread owns a 4 x 4 patch of the score tile and a 4 x ceil(D/16)
-//    patch of the accumulator, all products in f32.  Row max and row sum
+//    patch of the accumulator (4 x 16 past D = 128), all products in f32
+//    (214 KB of shared memory at D = 256).  Row max and row sum
 //    are shuffles across the 16 threads that share a row.  Single-pass TF32
 //    tensor cores would miss the f32 gate (2e-4 / 2e-5).
 #include <climits>
@@ -290,18 +297,23 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
     case 7: return launch_nc<T, 7>(p, stream);
     case 8: return launch_nc<T, 8>(p, stream);
   }
-  return cudaErrorInvalidValue;
+  return p.d <= 256 ? launch_nc<T, 16>(p, stream) : cudaErrorInvalidValue;
 }
 
 // ============================================================ tensor cores
 
 // One consumer warpgroup (64 q rows) a CTA, so more and smaller CTAs share
 // each SM (three at D <= 64) and the causal work spreads more evenly.
-constexpr int kTcMinBlocks64 = 3;             // CTAs an SM holds at D <= 64
-constexpr int kTcMinBlocks128 = 2;            // and at D <= 128
+template <int DP>
+__host__ __device__ constexpr int tc_min_blocks() {
+  return DP == 64 ? 3 : (DP == 128 ? 2 : 1);
+}
+// K/V ring stages: three, two at D = 256 (where three would fill a block's
+// shared memory but for 1.8 KB)
+template <int DP>
+__host__ __device__ constexpr int tc_stages() { return DP == 256 ? 2 : 3; }
 constexpr int kTcBlockQ = 64;                 // one consumer warpgroup's rows
 constexpr int kTcBlockK = 64;
-constexpr int kTcStages = 3;
 constexpr int kTcConsumers = 128;
 constexpr int kTcThreads = kTcConsumers + 32;  // + 1 producer warp
 constexpr uint32_t kQPanel = kTcBlockQ * 128;   // kTcBlockQ rows x 64 bf16
@@ -315,7 +327,7 @@ struct TcParams {
 
 template <int DP>
 constexpr size_t tc_smem_bytes() {
-  return 1024 + (size_t)(DP / 64) * (kQPanel + 2 * kTcStages * kKVPanel) + 256;
+  return 1024 + (size_t)(DP / 64) * (kQPanel + 2 * tc_stages<DP>() * kKVPanel) + 256;
 }
 
 __device__ __forceinline__ int pick(int which, int s, int h, int b) {
@@ -328,14 +340,16 @@ __device__ __forceinline__ void tma_tile(void* dst, const CUtensorMap* map, uint
                       pick(ord[2], s, h, b));
 }
 
-// DP: head_dim padded to 64 or 128 (one or two 64-column panels).  Several
-// CTAs share an SM, so one CTA's softmax overlaps another's products.
+// DP: head_dim padded to 64, 128 or 256 (one, two or four 64-column
+// panels).  Below 256 several CTAs share an SM, so one CTA's softmax
+// overlaps another's products.
 template <int DP>
-__global__ void __launch_bounds__(kTcThreads, DP == 64 ? kTcMinBlocks64 : kTcMinBlocks128)
+__global__ void __launch_bounds__(kTcThreads, tc_min_blocks<DP>())
     flash_tc_kernel(const __grid_constant__ CUtensorMap map_q,
                     const __grid_constant__ CUtensorMap map_k,
                     const __grid_constant__ CUtensorMap map_v, const TcParams tp) {
   constexpr int NP = DP / 64;
+  constexpr int kTcStages = tc_stages<DP>();
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* qs = base;                                    // NP x 16 KB
@@ -552,8 +566,18 @@ __global__ void __launch_bounds__(kTcThreads, DP == 64 ? kTcMinBlocks64 : kTcMin
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         const uint64_t dv = hopper::desc_b128(v_addr + kk * 2048, kKVPanel, 1024);
-        if constexpr (DP == 64) hopper::wgmma_rs_n64<1>(o, pa[kk], dv, 1);
-        else hopper::wgmma_rs_n128<1>(o, pa[kk], dv, 1);
+        if constexpr (DP == 64) {
+          hopper::wgmma_rs_n64<1>(o, pa[kk], dv, 1);
+        } else if constexpr (DP == 128) {
+          hopper::wgmma_rs_n128<1>(o, pa[kk], dv, 1);
+        } else {  // columns 0-127, then 128-255 (panels 2 and 3)
+#pragma unroll
+          for (int half = 0; half < 2; ++half)
+            hopper::wgmma_rs_n128<1>(
+                *reinterpret_cast<float(*)[64]>(o + 64 * half), pa[kk],
+                hopper::desc_b128(v_addr + 2 * half * kKVPanel + kk * 2048, kKVPanel, 1024),
+                1);
+        }
       }
       hopper::wgmma_commit();
 #pragma unroll
@@ -640,7 +664,8 @@ cudaError_t tc_launch_dp(const Params& p, cudaStream_t stream) {
 }
 
 cudaError_t tc_launch(const Params& p, cudaStream_t stream) {
-  return p.d <= 64 ? tc_launch_dp<64>(p, stream) : tc_launch_dp<128>(p, stream);
+  if (p.d <= 64) return tc_launch_dp<64>(p, stream);
+  return p.d <= 128 ? tc_launch_dp<128>(p, stream) : tc_launch_dp<256>(p, stream);
 }
 
 }  // namespace
@@ -661,7 +686,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* ou
                            long long o_sb, long long o_sh, long long o_ss,
                            int dtype, int route, void* stream) {
   if (b <= 0 || hq <= 0 || sq <= 0) return (int)cudaSuccess;
-  if (hkv <= 0 || hq % hkv != 0 || d < 8 || d > 128 || d % 8 != 0 ||
+  if (hkv <= 0 || hq % hkv != 0 || d < 8 || d > 256 || d % 8 != 0 ||
       (sq + kBlockQ - 1) / kBlockQ > 65535)
     return (int)cudaErrorInvalidValue;
   const Params p{q, k, v, out,

@@ -35,6 +35,8 @@ LIBRARY = CudaLibrary(
         [_P] * 6 + [_I] * 8 + [ctypes.c_float] + [_L] * 12 + [_I, _I, _P]},
 )
 ROUTES = ("cuda_cores", "tensor_cores")
+#: the widest head the kernel takes (recurrentgemma-2b's local blocks: 256)
+MAX_HEAD_DIM = 256
 
 
 def route(dtype, views, ptrs) -> str:
@@ -84,9 +86,9 @@ def _launch(q, k, v, out, q_pos, k_pos, causal: bool, window: int):
     """Launch on (B, H, S, D) views of any strides (unit stride in D)."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
-    if d % 8 or not 8 <= d <= 128:
+    if d % 8 or not 8 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head_dim must be a multiple of 8 "
-                         f"in [8, 128], got {d}")
+                         f"in [8, {MAX_HEAD_DIM}], got {d}")
     if any(t.stride(-1) != 1 for t in (q, k, v, out)):
         raise ValueError("flash_attention: head_dim must have unit stride")
     if out.numel() == 0:

@@ -89,8 +89,18 @@ ABLATIONS = {
         "      return;\n"
         "    }\n")],
     ("flash_attention", "no_pv"): [(
-        "        if constexpr (DP == 64) hopper::wgmma_rs_n64<1>(o, pa[kk], dv, 1);\n"
-        "        else hopper::wgmma_rs_n128<1>(o, pa[kk], dv, 1);\n",
+        "        if constexpr (DP == 64) {\n"
+        "          hopper::wgmma_rs_n64<1>(o, pa[kk], dv, 1);\n"
+        "        } else if constexpr (DP == 128) {\n"
+        "          hopper::wgmma_rs_n128<1>(o, pa[kk], dv, 1);\n"
+        "        } else {  // columns 0-127, then 128-255 (panels 2 and 3)\n"
+        "#pragma unroll\n"
+        "          for (int half = 0; half < 2; ++half)\n"
+        "            hopper::wgmma_rs_n128<1>(\n"
+        "                *reinterpret_cast<float(*)[64]>(o + 64 * half), pa[kk],\n"
+        "                hopper::desc_b128(v_addr + 2 * half * kKVPanel + kk * 2048, kKVPanel, 1024),\n"
+        "                1);\n"
+        "        }\n",
         "        (void)dv;  // ablation: no P V product\n")],
     ("gemm_dataflow", "tc_no_mma"): [(
         "  const uint32_t a0 = hopper::smem_u32(a) + wg * 64 * 128, b0 = hopper::smem_u32(b);\n",

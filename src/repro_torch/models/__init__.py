@@ -1,6 +1,8 @@
-"""The LM substrate (the port of :mod:`repro.models`): dense ``attn``
-blocks so far, with the flash-attention kernel on the prefill path and
-``lm_loss`` (plain versions) for training."""
+"""The LM substrate (the port of :mod:`repro.models`): every block kind
+(``attn``, ``local``, ``moe``, ``rglru``, ``mlstm``, ``slstm``), with the
+flash-attention kernel on the prefill path and ``lm_loss`` (plain
+versions) for training.  The reference's sharding names wait for the
+sharding item (ROADMAP Queue 1 item 6)."""
 from .config import ArchConfig, MoEConfig
 from .stubs import make_inputs, synthetic_embeddings, synthetic_tokens
 from .transformer import (

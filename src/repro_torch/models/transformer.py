@@ -5,10 +5,13 @@ reference's layout (``embeddings``, ``final_norm``, ``scanned`` — one
 stack per pattern position, every leaf with a leading layer axis — and
 ``remainder``), so weights carry across with :func:`params_from_numpy`.
 The reference's ``lax.scan`` over the stacks is a Python loop over the
-layer index here.
+layer index here.  Every block kind of the reference is ported: ``attn``,
+``local`` (``attn`` under ``cfg.window``), ``moe``, ``rglru``, ``mlstm``
+and ``slstm``.
 
-Only the ``attn`` block kind is ported so far; ``local``, ``moe``,
-``rglru``, ``mlstm`` and ``slstm`` raise :class:`NotImplementedError`.
+Decode updates the cache in place: each layer's state is a view into the
+stacked cache, so a KV slot is written and a recurrent state is copied
+into its view (``copy_``), never rebound.
 """
 from __future__ import annotations
 
@@ -29,15 +32,18 @@ from .layers import (
     norm,
     torch_dtype,
 )
-
-PORTED_KINDS = ("attn",)
-
-
-def _check_kind(kind: str) -> None:
-    if kind not in PORTED_KINDS:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (the port runs {PORTED_KINDS}; "
-            "see ROADMAP Queue 1 item 5)")
+from .moe import init_moe, moe_ffn
+from .rglru import RGLRUState, init_rglru, rglru_block, rglru_decode
+from .xlstm import (
+    MLSTMState,
+    SLSTMState,
+    init_mlstm,
+    init_slstm,
+    mlstm_block,
+    mlstm_decode,
+    slstm_block,
+    slstm_decode,
+)
 
 
 # ---------------------------------------------------------------------------
@@ -47,38 +53,107 @@ def _check_kind(kind: str) -> None:
 
 def init_block(cfg: ArchConfig, kind: str, generator: torch.Generator,
                device=None) -> dict:
-    _check_kind(kind)
-    return {
-        "ln1": init_norm_scale(cfg, device),
-        "attn": init_attention(cfg, generator, device),
-        "ln2": init_norm_scale(cfg, device),
-        "mlp": init_mlp(cfg, generator, device),
-    }
+    p = {"ln1": init_norm_scale(cfg, device)}
+    if kind in ("attn", "local", "moe"):
+        p["attn"] = init_attention(cfg, generator, device)
+        p["ln2"] = init_norm_scale(cfg, device)
+        if kind == "moe":
+            p["moe"] = init_moe(cfg, generator, device)
+        else:
+            p["mlp"] = init_mlp(cfg, generator, device)
+    elif kind == "rglru":
+        p["rg"] = init_rglru(cfg, generator, device)
+        p["ln2"] = init_norm_scale(cfg, device)
+        p["mlp"] = init_mlp(cfg, generator, device)
+    elif kind == "mlstm":
+        p["mlstm"] = init_mlstm(cfg, generator, device)
+    elif kind == "slstm":
+        p["slstm"] = init_slstm(cfg, generator, device)
+    else:
+        raise KeyError(kind)
+    return p
 
 
 def apply_block(cfg: ArchConfig, kind: str, p: dict, x, positions, *,
                 use_kernels: bool = True):
     """Full-sequence block application. Returns (x, aux_loss)."""
-    _check_kind(kind)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = norm(cfg, x, p["ln1"])
-    x = x + attention(cfg, p["attn"], h, positions, use_kernels=use_kernels)
-    x = x + mlp(cfg, p["mlp"], norm(cfg, x, p["ln2"]))
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind in ("attn", "local", "moe"):
+        win = cfg.window if kind == "local" else 0
+        x = x + attention(cfg, p["attn"], h, positions, window=win,
+                          use_kernels=use_kernels)
+        h2 = norm(cfg, x, p["ln2"])
+        if kind == "moe":
+            ff, aux = moe_ffn(cfg, p["moe"], h2)
+            x = x + ff
+        else:
+            x = x + mlp(cfg, p["mlp"], h2)
+    elif kind == "rglru":
+        x = x + rglru_block(cfg, p["rg"], h)
+        x = x + mlp(cfg, p["mlp"], norm(cfg, x, p["ln2"]))
+    elif kind == "mlstm":
+        x = x + mlstm_block(cfg, p["mlstm"], h)
+    elif kind == "slstm":
+        x = x + slstm_block(cfg, p["slstm"], h)
+    else:
+        raise KeyError(kind)
+    return x, aux
 
 
 def init_block_state(cfg: ArchConfig, kind: str, batch: int, max_len: int,
                      device=None):
-    _check_kind(kind)
-    return KVCache.zeros(cfg, batch, max_len, device=device)
+    if kind in ("attn", "moe"):
+        return KVCache.zeros(cfg, batch, max_len, device=device)
+    if kind == "local":
+        return KVCache.zeros(cfg, batch, max_len, window=cfg.window, device=device)
+    if kind == "rglru":
+        return RGLRUState.zeros(cfg, batch, device)
+    if kind == "mlstm":
+        return MLSTMState.zeros(cfg, batch, device)
+    if kind == "slstm":
+        return SLSTMState.zeros(cfg, batch, device)
+    raise KeyError(kind)
+
+
+def _write(state, new):
+    """Copy a recurrent state's new tensors into ``state``'s (views into
+    the stacked cache); returns ``state``."""
+    for dst, src in zip(state, new):
+        dst.copy_(src)
+    return state
 
 
 def decode_block(cfg: ArchConfig, kind: str, p: dict, x, state, index):
-    """One-token block application. Returns (x, state); the KV cache is
-    updated in place (see :func:`decode_attention`)."""
-    _check_kind(kind)
-    a, state = decode_attention(cfg, p["attn"], norm(cfg, x, p["ln1"]), state, index)
-    x = x + a
-    x = x + mlp(cfg, p["mlp"], norm(cfg, x, p["ln2"]))
+    """One-token block application. Returns (x, state); ``state`` is updated
+    in place (the KV cache by :func:`decode_attention`, a recurrent state
+    by copying the new one into it)."""
+    h = norm(cfg, x, p["ln1"])
+    if kind in ("attn", "local", "moe"):
+        win = cfg.window if kind == "local" else 0
+        a, state = decode_attention(cfg, p["attn"], h, state, index, window=win)
+        x = x + a
+        h2 = norm(cfg, x, p["ln2"])
+        if kind == "moe":
+            ff, _ = moe_ffn(cfg, p["moe"], h2)
+            x = x + ff
+        else:
+            x = x + mlp(cfg, p["mlp"], h2)
+    elif kind == "rglru":
+        r, new = rglru_decode(cfg, p["rg"], h, state)
+        x = x + r
+        x = x + mlp(cfg, p["mlp"], norm(cfg, x, p["ln2"]))
+        state = _write(state, new)
+    elif kind == "mlstm":
+        m, new = mlstm_decode(cfg, p["mlstm"], h, state)
+        x = x + m
+        state = _write(state, new)
+    elif kind == "slstm":
+        s, new = slstm_decode(cfg, p["slstm"], h, state)
+        x = x + s
+        state = _write(state, new)
+    else:
+        raise KeyError(kind)
     return x, state
 
 
@@ -119,8 +194,6 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device=None) -> dic
     device) and placed on ``device``: embeddings first, then each pattern
     position's layers, then the remainder."""
     dev = resolve_device(device)
-    for kind in cfg.block_pattern:
-        _check_kind(kind)
     reps, pat, rem = _layer_plan(cfg)
     embeddings = init_embeddings(cfg, generator, dev)
     scanned = [
@@ -211,7 +284,8 @@ def decode_step(cfg: ArchConfig, params: dict, cache, tokens: torch.Tensor, inde
 
     ``tokens``: (B, 1) ints (or (B, 1, d) embeddings); ``index``: the
     position.  Returns (logits (B, 1, vocab), cache); the cache's tensors
-    are updated in place (each layer's KV slot ``index`` is written)."""
+    are updated in place (each layer's KV slot ``index`` is written, each
+    recurrent state overwritten)."""
     h = _embed(cfg, params, tokens)
     reps, pat, rem = _layer_plan(cfg)
     for i in range(reps):

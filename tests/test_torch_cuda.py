@@ -204,10 +204,10 @@ def test_kernel_tier_matches_eager_tier_on_card(dev, policy, order):
 
 
 # (B, Hq, Hkv, Sq, Sk, D): the reference's kernel-test shapes, GQA, a ragged
-# length, every head_dim class of the kernel (8 .. 128)
+# length, every head_dim class of the kernel (8 .. 256)
 FLASH_SHAPES = [(2, 4, 2, 96, 96, 32), (1, 8, 1, 64, 128, 16), (2, 2, 2, 33, 33, 64),
                 (1, 9, 3, 200, 200, 64), (1, 4, 4, 70, 45, 8), (1, 2, 1, 130, 130, 128),
-                (1, 3, 3, 17, 300, 40)]
+                (1, 3, 3, 17, 300, 40), (1, 5, 1, 150, 150, 256), (1, 2, 2, 70, 90, 200)]
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -338,7 +338,8 @@ def assert_rows_close_to_f32(out, ref32):
 
 
 FLASH_BF16_EDGES = [(1, 14, 2, 130, 130, 128), (2, 7, 1, 200, 200, 8),
-                    (1, 4, 2, 70, 300, 64), (1, 6, 3, 300, 45, 40)]
+                    (1, 4, 2, 70, 300, 64), (1, 6, 3, 300, 45, 40),
+                    (1, 10, 1, 200, 200, 256), (1, 4, 2, 130, 70, 136)]
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -373,6 +374,59 @@ def test_attend_bf16_offset_positions_and_window(dev, window):
                                **BF16_TOL)
     assert_rows_close_to_f32(out, attend_chunked(q.float(), k.float(), v.float(), q_pos,
                                                  k_pos, window, 64))
+
+
+def test_flash_d256_mqa_window_matches_plain(dev):
+    """recurrentgemma-2b's local blocks on the model route: D 256, MQA 10 / 1,
+    S 4096 under a 2048 window (so the window masks and key blocks behind
+    it are skipped), bf16 on the tensor cores."""
+    b, s, hq, hkv, d, win = 1, 4096, 10, 1, 256, 2048
+    q = randn((b, s, hq, d), 7, dev, torch.bfloat16)
+    k, v = randn((b, s, hkv, d), 8, dev, torch.bfloat16), randn((b, s, hkv, d), 9, dev,
+                                                                 torch.bfloat16)
+    pos = torch.arange(s, device=dev, dtype=torch.int32)
+    before = flash_attention.launches
+    out = attend(q, k, v, pos, pos, win)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    torch.testing.assert_close(out, attend_chunked(q, k, v, pos, pos, win), **BF16_TOL)
+    assert_rows_close_to_f32(out, attend_chunked(q.float(), k.float(), v.float(), pos,
+                                                 pos, win))
+
+
+def test_flash_head_dim_past_256_raises(dev):
+    """A head_dim the kernel cannot take raises; it never runs the plain
+    version on a CUDA tensor."""
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (randn((1, 2, 64, 264), i, dev, dtype) for i in range(3))
+        before = flash_attention.launches
+        with pytest.raises(ValueError, match="head_dim"):
+            flash_attention(q, k, v, causal=True)
+        pos = torch.arange(64, device=dev, dtype=torch.int32)
+        with pytest.raises(ValueError, match="head_dim"):
+            attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), pos, pos)
+        assert flash_attention.launches == before
+
+
+def test_moe_ragged_is_bit_stable_on_card(dev):
+    """granite-moe-1b-a400m's MoE layer at its published widths (bf16, 32
+    experts top 8, 1024 tokens): two calls and two backwards give the same
+    bits (the combine sums each token's 8 rows, with no atomics)."""
+    from repro_torch.models.moe import init_moe, moe_ragged
+
+    cfg = get_config("granite-moe-1b-a400m")
+    p = init_moe(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    x = randn((2, 512, cfg.d_model), 3, dev, torch.bfloat16)
+    outs, grads = [], []
+    for _ in range(2):
+        xg = x.clone().requires_grad_()
+        pg = {k: t.clone().requires_grad_() for k, t in p.items()}
+        out, aux = moe_ragged(cfg, pg, xg)
+        (out.float().square().mean() + aux).backward()
+        outs.append((out.detach(), aux.detach()))
+        grads.append([xg.grad] + [pg[k].grad for k in sorted(pg)])
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
 
 
 def test_flash_bf16_strides_tma_refuses_take_cuda_cores(dev):

@@ -23,7 +23,8 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "repro_torch.runtime, repro_torch.runtime.scheduler, repro_torch.gnn.pp, "
         "repro_torch.graphs.partition, repro_torch.core.calibrate, "
         "repro_torch.launch.train, repro_torch.optim, repro_torch.data, "
-        "repro_torch.checkpoint\n"
+        "repro_torch.checkpoint, repro_torch.models.moe, repro_torch.models.rglru, "
+        "repro_torch.models.xlstm, repro_torch.launch.analytic\n"
         "import repro_torch.configs.gcn_paper\n"
         "from repro_torch.configs import all_configs\n"
         "all_configs()\n"

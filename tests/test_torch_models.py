@@ -305,15 +305,29 @@ def test_params_from_numpy_carries_bf16_weights():
     np.testing.assert_array_equal(wq.float().numpy(), ref_wq.astype(np.float32))
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "xlstm-1.3b",
-                                  "granite-moe-1b-a400m"])
-def test_unported_block_kinds_raise(arch):
+def test_moe_ep_raises_until_sharding_is_ported():
+    from repro_torch.models.moe import init_moe, moe_ffn
+
+    cfg = get_config("granite-moe-1b-a400m").reduced()
+    p = init_moe(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        moe_ffn(cfg, p, torch.zeros(1, 2, cfg.d_model), policy="ep")
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_init_params_and_forward_run_for_every_arch(arch):
+    """Every arch of the registry builds and runs in the port (reduced,
+    float32, on the CPU): finite logits of the right shape, the block
+    kinds' states in the cache."""
     cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        tf.init_params(cfg, torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tf.apply_block(cfg, cfg.block_pattern[0], {}, torch.zeros(1, 2, 64),
-                       torch.zeros(1, 2, dtype=torch.int32))
+    params = tf.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    inputs = make_inputs(cfg, 2, 10, seed=0, device="cpu")
+    logits, aux = tf.forward(cfg, params, inputs)
+    assert logits.shape == (2, 10, cfg.vocab) and bool(torch.isfinite(logits).all())
+    assert bool(torch.isfinite(aux))
+    cache = tf.init_cache(cfg, 2, 10, device="cpu")
+    step, _ = tf.decode_step(cfg, params, cache, inputs[:, :1], 0)
+    assert step.shape == (2, 1, cfg.vocab) and bool(torch.isfinite(step).all())
 
 
 def test_entry_points_need_a_device_where_there_is_no_cuda():
