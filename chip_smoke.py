@@ -4,6 +4,7 @@ any failure.
     python3 chip_smoke.py
     python3 chip_smoke.py --only train         # phase 8 alone, in a fresh process
     python3 chip_smoke.py --only lm_families   # phase 11 alone, in a fresh process
+    python3 chip_smoke.py --only sharded       # phase 12 alone (on 4 cards: also one process a card)
 
 Phases, one JSON line each (no phase's error is caught):
 
@@ -116,13 +117,36 @@ Phases, one JSON line each (no phase's error is caught):
                 L2), prefill / replay / decode walls against their bounds,
                 peak memory; recurrentgemma also at 1 x 4096 tokens, where
                 its 2048 window masks.
+12. sharded   — the LM on a ``(data, model)`` device mesh (DTensor, one
+                process a card): granite-moe-1b-a400m at full width, bf16,
+                on a (1, 1) NCCL mesh in this process — the sharded prefill
+                (``moe_ep``, flash through ``local_map``, 24 launches),
+                each layer's flash output held on its local q, k, v against
+                the plain version, the logits against the plain route (held
+                in f32, and in bf16 on the kernel route's expert choices;
+                read in bf16 with each route's own choices, beside the
+                count of choices that changed), an 8-token
+                sharded prefill against the unsharded one, two sharded
+                training steps at batch 2 x 512, a checkpoint round trip
+                and the resumed step ``torch.equal`` to the straight one;
+                DTensor's host cost as smollm-135m's step on the (1, 1)
+                mesh against the same step unsharded.  With two or more
+                cards, one process a card (4 cards: meshes (1, 4) and
+                (2, 2)): EP over the cards against the (1, 1) logits, each
+                rank's flash on its own heads held as above, f32 data
+                parallelism against one card's whole batch, a resumed step
+                ``torch.equal``, a checkpoint written on every card
+                restored on half of them and on one, per-rank step walls
+                and a profiled step's NCCL time.  On one card that part
+                prints that it did not run.
 
-Launch counts are set to 0 just before phases 3-11 (each part of the engine
+Launch counts are set to 0 just before phases 3-12 (each part of the engine
 and async phases that serves the main path) and read just after;
 the ``{"kernels": [...]}`` line reports them.  The last line is
 ``{"ok": true, "device": {...}}``; it is printed only when every phase
 passed.  Weights and data are random, made from fixed seeds.
 """
+import contextlib
 import gc
 import json
 import os
@@ -169,6 +193,28 @@ FLASH_ROW_REL_L2 = 1e-2
 # xLSTM's logits move by ~45% under one-ulp noise on its embeddings (the
 # reference's, on a CPU), so bf16 decode is read, not held.
 DECODE_F32_REL_L2 = {"xlstm-1.3b": 1e-2}
+# f32 gradients on a (2, 2) mesh (data and tensor parallel) against the whole
+# batch on one card, as the largest relative L2 error of one leaf, with every
+# token sent to every expert: the same f32 function summed in another order
+# (per-shard partial sums, all-reduces; the CPU's reduced run reads 7.6e-7).
+# With the published top-8 a near-tie routed one way on one side and the
+# other way on the other moves an expert's gradient by a token's share
+# (1.2e-3 per leaf on H100s at full width), so top-8 is read, not held.
+DP_GRAD_REL_L2 = 1e-4
+# granite-moe's sharded prefill (moe_ep, flash through local_map) against
+# the same mesh's plain route, and on (1, N) cards against (1, 1), in
+# float32, as a relative L2 error: two sum orders of one f32 function.  In
+# bf16 the two sides' roundings (flash against the plain softmax; the
+# row-parallel partial sums all-reduced over the cards) flip some of the
+# 1,024 tokens' top-8 expert choices in 24 layers, and a flip under the
+# capacity limit moves the tokens queued behind it: 0.0300 on one H100
+# (2,824 of 196,608 choices changed, from layer 0 on), with the unsharded
+# routes at 0.0283 at the same shape.  So in bf16 the held checks are each
+# layer's flash call on its own local q, k, v (``held_flash_islands``),
+# where no routing sits between the two sides, and the logits against the
+# plain route rerun on the kernel route's expert choices, at
+# ``LM_BF16_REL_L2`` (0.0104 on one H100); the free-routing logits are read.
+SHARDED_F32_REL_L2 = 1e-3
 DECODE_F32_REL_L2_DEFAULT = 1e-3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # dense, per s
@@ -2094,10 +2140,603 @@ def phase_lm_families(dev, counters, batch=2, prompt_len=128, new_tokens=8) -> d
     return launches
 
 
+SHARDED_ARCH = "granite-moe-1b-a400m"
+
+
+def local_equal(a, b) -> bool:
+    """``torch.equal`` of two DTensors' (or tensors') own shards."""
+    if hasattr(a, "to_local"):
+        a, b = a.to_local(), b.to_local()
+    return torch.equal(a, b)
+
+
+def step_timer(step_fn):
+    """``step_fn`` wrapped to record, per call, its CUDA-event ms (host cost
+    included) and its calling thread's CPU seconds."""
+    log = []
+
+    def run(*args):
+        me = threading.get_native_id()
+        cpu0 = thread_cpu_s()[me][1]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step_fn(*args)
+        end.record()
+        end.synchronize()
+        log.append({"ms": start.elapsed_time(end), "cpu_s": thread_cpu_s()[me][1] - cpu0})
+        check(bool(torch.isfinite(out[0])), "sharded step: non-finite loss")
+        return out
+
+    return run, log
+
+
+@contextlib.contextmanager
+def held_flash_islands(log: list):
+    """Inside, every flash call of the model's attention (``attention.attend``
+    on each rank's own q, k, v, inside the ``local_map`` island) launches
+    the kernel as usual and is then held against its plain version on the
+    same local inputs: ``TOL_BF16`` (``TOL_FLASH`` in f32), and in bf16
+    each output row's relative L2 error against the f32 plain version
+    (``FLASH_ROW_REL_L2``).  No MoE sits between the two, so no routing
+    choice can move either side.  One record a call goes to ``log``."""
+    import repro_torch.models.attention as attention_mod
+    from repro_torch.kernels.flash_attention import attend_chunked, route
+
+    real = attention_mod.attend
+
+    def held(q, k, v, q_pos, k_pos, window=0, chunk=512):
+        out = real(q, k, v, q_pos, k_pos, window, chunk)
+        ref = attend_chunked(q, k, v, q_pos, k_pos, window, chunk)
+        views = [t.transpose(1, 2) for t in (q, k, v, out)]
+        bf16 = q.dtype == torch.bfloat16
+        rec = {"q": list(q.shape), "kv": list(k.shape), "dtype": str(q.dtype),
+               "route": route(q.dtype, [(t.shape, t.stride()) for t in views],
+                              [t.data_ptr() for t in views]),
+               "max_abs_err": float((out.float() - ref.float()).abs().max()),
+               "close": bool(torch.allclose(out.float(), ref.float(),
+                                            **(TOL_BF16 if bf16 else TOL_FLASH)))}
+        if bf16:
+            ref32 = attend_chunked(q.float(), k.float(), v.float(), q_pos, k_pos, window, chunk)
+            rec["row_rel_l2_vs_f32"] = float(
+                ((out.float() - ref32).norm(dim=-1) / ref32.norm(dim=-1)).max())
+        log.append(rec)
+        return out
+
+    attention_mod.attend = held
+    try:
+        yield log
+    finally:
+        attention_mod.attend = real
+
+
+def islands_summary(log: list) -> dict:
+    rows = [r["row_rel_l2_vs_f32"] for r in log if "row_rel_l2_vs_f32" in r]
+    return {"calls": len(log),
+            "local_shapes": sorted({f"q{r['q']} kv{r['kv']} {r['dtype']}" for r in log}),
+            "routes": sorted({r["route"] for r in log}),
+            "max_abs_err": max(r["max_abs_err"] for r in log),
+            "row_rel_l2_max": max(rows) if rows else None,
+            "all_close": all(r["close"] for r in log)}
+
+
+def check_islands(summary: dict, layers: int, where: str) -> None:
+    """Each attention layer's flash call held (``held_flash_islands``); in
+    bf16 on the tensor cores, within ``FLASH_ROW_REL_L2``."""
+    check(summary["calls"] == layers,
+          f"{where}: {summary['calls']} flash calls held, not {layers}")
+    check(summary["all_close"], f"{where}: a layer's flash output is not within "
+          f"tolerance of its plain version: {summary}")
+    if summary["row_rel_l2_max"] is not None:
+        check(summary["routes"] == ["tensor_cores"],
+              f"{where}: bf16 flash did not take the tensor cores: {summary['routes']}")
+        check(summary["row_rel_l2_max"] <= FLASH_ROW_REL_L2,
+              f"{where}: flash row relative L2 {summary['row_rel_l2_max']} > "
+              f"{FLASH_ROW_REL_L2}")
+
+
+@contextlib.contextmanager
+def moe_routes(log: list, replay: list | None = None):
+    """Inside, each MoE layer's top-k expert choices (``moe._route``, as
+    ``moe_ep`` calls it) are appended to ``log``.  With ``replay`` (the
+    ``log`` of an earlier run) each layer takes that run's choices in place
+    of its own top-k; its gates, and so the weights of the choices, stay
+    its own."""
+    import repro_torch.models.moe as moe_mod
+
+    real = moe_mod._route
+
+    def routed(cfg, p, x2d):
+        probs, ids, aux = real(cfg, p, x2d)
+        if replay is not None:
+            ids = replay[len(log)]
+            gates = torch.softmax(x2d.float() @ p["router"].float(), dim=-1)
+            probs = gates.gather(-1, ids)
+            probs = probs / torch.clamp_min(probs.sum(-1, keepdim=True), 1e-9)
+        log.append(ids)
+        return probs, ids, aux
+
+    moe_mod._route = routed
+    try:
+        yield log
+    finally:
+        moe_mod._route = real
+
+
+def route_flips(a: list, b: list) -> dict:
+    """How many top-k expert choices two runs' routers made differently,
+    layer by layer (a choice of one run the other's token did not make)."""
+    changed, tokens = [], []
+    for x, y in zip(a, b):
+        found = (x[:, :, None] == y[:, None, :]).any(-1).sum(-1)
+        changed.append(int((x.shape[1] - found).sum()))
+        tokens.append(int((found < x.shape[1]).sum()))
+    first = next((i for i, n in enumerate(changed) if n), None)
+    return {"layers": len(a), "tokens_a_layer": int(a[0].shape[0]), "top_k": int(a[0].shape[1]),
+            "choices_changed_by_layer": changed, "tokens_changed_by_layer": tokens,
+            "choices_changed": sum(changed), "first_layer_changed": first}
+
+
+def dtensor_host_cost(dev, mesh, rules, steps=5, batch=8, seq=512) -> dict:
+    """DTensor's cost on one algorithm: smollm-135m (dense, so the sharded
+    and the unsharded step run the same products) trained ``steps`` steps
+    unsharded and on the (1, 1) mesh, at the ``train`` phase's batch.  The
+    difference of the medians of the warm steps (the first left out), in
+    CUDA-event ms and in the calling thread's CPU seconds."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import LMDataPipeline
+    from repro_torch.launch import train
+    from repro_torch.models import init_params, param_shardings
+    from repro_torch.models.sharding import distribute
+
+    cfg = get_config("smollm-135m")
+    data = LMDataPipeline(cfg, batch, seq, seed=0, device=dev)
+    logs = {}
+    for name in ("unsharded", "sharded"):
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        m, r = (mesh, rules) if name == "sharded" else (None, None)
+        if m is not None:
+            params = distribute(params, param_shardings(params, m, r))
+        init_opt, step_fn = train.build_trainer(cfg, m, r, lr=3e-4, total_steps=steps)
+        run, logs[name] = step_timer(step_fn)
+        opt = init_opt(params)
+        for i in range(steps):
+            _, params, opt, _ = run(params, opt, None, data.peek(i))
+        del params, opt
+    torch.cuda.empty_cache()
+    med = {name: {key: statistics.median(s[key] for s in log[1:]) for key in ("ms", "cpu_s")}
+           for name, log in logs.items()}
+    return {"model": "smollm-135m", "batch": batch, "seq": seq, "steps": logs,
+            "median_warm": med,
+            "dtensor_host_ms_per_step": med["sharded"]["ms"] - med["unsharded"]["ms"],
+            "dtensor_host_cpu_s_per_step": med["sharded"]["cpu_s"] - med["unsharded"]["cpu_s"]}
+
+
+def phase_sharded(dev, counters, batch=2, seq=512) -> dict:
+    """The LM on a ``(data, model)`` device mesh (``models/sharding.py``,
+    ``launch/mesh.py``): on this card a (1, 1) NCCL mesh in this process,
+    granite-moe-1b-a400m at its published widths in bf16, DTensor
+    parameters placed by ``param_shardings``.  The sharded prefill
+    ``forward`` (``moe_ep``; flash attention through ``local_map`` on each
+    shard's heads), one flash launch an attention layer, each launch held
+    on its local q, k, v against the plain version
+    (:func:`held_flash_islands`); the logits against the same mesh's plain
+    route, held in f32, and in bf16 with the plain route rerun on the
+    kernel route's expert choices; read in bf16 with each route's own
+    choices, beside the count of choices that changed; an 8-token sharded ``prefill`` (its decode replay through the
+    DTensor cache) against the unsharded one; two sharded AdamW steps (bf16
+    parameters, f32 moments) through ``launch.train.build_trainer(cfg,
+    mesh, rules)``, the step-1 state saved and restored by the
+    ``Checkpointer`` and the resumed step ``torch.equal`` to the straight
+    one; DTensor's host cost on smollm-135m (:func:`dtensor_host_cost`).  Then, with two or more cards, one process
+    a card (:func:`sharded_multi_card`); on one card that part says it did
+    not run."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.data import LMDataPipeline
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import init_process_group, make_mesh_for
+    from repro_torch.models import (
+        count_params,
+        forward,
+        init_params,
+        param_shardings,
+        prefill,
+        production_rules,
+        use_sharding,
+    )
+    from repro_torch.models.sharding import distribute
+    from repro_torch.tree import leaf_paths, leaves, tree_map
+
+    t_phase = time.perf_counter()
+    cfg = get_config(SHARDED_ARCH)
+    root = Path(__file__).resolve().parent / "build" / "sharded"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    init_process_group("cuda")
+    mesh, rules = make_mesh_for(1, 1), production_rules()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    n = count_params(params)
+    data = LMDataPipeline(cfg, batch, seq, seed=0, device=dev)
+    tokens = data.peek(0)["inputs"]
+
+    with torch.no_grad():
+        short_ref, cache_ref = prefill(cfg, params, tokens[:, :8])
+        # the unsharded routes at this shape, read beside the sharded ones
+        unsharded_vs_plain = rel_l2(forward(cfg, params, tokens)[0],
+                                    forward(cfg, params, tokens, use_kernels=False)[0])
+    cache_ref = [t.clone() for t in leaves(cache_ref)]
+
+    sp = distribute(params, param_shardings(params, mesh, rules))
+    del params
+    torch.cuda.empty_cache()
+    placements = sorted({str(t.placements) for t in leaves(sp)})
+    reset_counts(counters)
+    islands, islands32, kernel_routes, plain_routes = [], [], [], []
+    with torch.no_grad(), use_sharding(mesh, rules):
+        # the flash kernel's build and first launch, each layer's call held
+        with held_flash_islands(islands), moe_routes(kernel_routes):
+            forward(cfg, sp, tokens)
+        reset_counts(counters)
+        sync(dev)
+        t0 = time.perf_counter()
+        logits, _ = forward(cfg, sp, tokens)
+        sync(dev)
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        flash = counters["flash_attention"].launches
+        counts = {k: c.launches for k, c in counters.items()}
+        with moe_routes(plain_routes):
+            plain_logits, _ = forward(cfg, sp, tokens, use_kernels=False)
+        logits = logits.full_tensor()
+        vs_plain = rel_l2(logits, plain_logits.full_tensor())
+        del plain_logits
+        flips = route_flips(kernel_routes, plain_routes)
+        with moe_routes([], replay=kernel_routes):
+            same_routes = forward(cfg, sp, tokens, use_kernels=False)[0].full_tensor()
+        vs_plain_same_routes = rel_l2(logits, same_routes)
+        del same_routes, kernel_routes, plain_routes
+        t0 = time.perf_counter()
+        short, cache = prefill(cfg, sp, tokens[:, :8])
+        sync(dev)
+        short_prefill_s = time.perf_counter() - t0
+        short_vs = rel_l2(short.full_tensor(), short_ref)
+        cache_vs = max(rel_l2(a.full_tensor(), b) for a, b in zip(leaves(cache), cache_ref))
+        del short, cache, short_ref, cache_ref
+        # the same comparison in float32, where the two routes' rounding
+        # cannot flip an expert choice: the held check of flash on the mesh
+        cfg32 = cfg.with_(dtype="float32")
+        sp32 = tree_map(lambda t: t.float(), sp)
+        with held_flash_islands(islands32):
+            logits32 = forward(cfg32, sp32, tokens)[0].full_tensor()
+        f32_vs_plain = rel_l2(logits32,
+                              forward(cfg32, sp32, tokens, use_kernels=False)[0].full_tensor())
+        del sp32
+    torch.save(logits32.cpu(), root / "logits_1x1_f32.pt")
+    del logits32
+    torch.save(logits.cpu(), root / "logits_1x1.pt")
+    del logits
+
+    init_opt, step_fn = train.build_trainer(cfg, mesh, rules, lr=3e-4, total_steps=2)
+    run, log = step_timer(step_fn)
+    loss0, p1, o1, _ = run(sp, init_opt(sp), None, data.peek(0))
+    del sp
+    ck = Checkpointer(root / "ckpt")
+    t0 = time.perf_counter()
+    ck.save(1, {"params": p1, "opt": o1})
+    save_s = time.perf_counter() - t0
+    loss1, p2, o2, _ = run(p1, o1, None, data.peek(1))
+    del p1, o1
+    t0 = time.perf_counter()
+    state = ck.restore({"params": p2, "opt": o2}, step=1)
+    restore_s = time.perf_counter() - t0
+    same_placements = all(a.placements == b.placements for a, b in
+                          zip(leaves(state["params"]), leaves(p2)))
+    _, p3, o3, _ = run(state["params"], state["opt"], None, data.peek(1))
+    del state
+    differ = ["/".join(map(str, path))
+              for (path, a), b in zip(leaf_paths({"p": p3, "o": o3}), leaves({"p": p2, "o": o2}))
+              if not local_equal(a, b)]
+    del p2, o2, p3, o3
+    torch.cuda.empty_cache()
+    dtensor = dtensor_host_cost(dev, mesh, rules)
+    islands, islands32 = islands_summary(islands), islands_summary(islands32)
+    emit({"phase": "sharded", "model": SHARDED_ARCH, "mesh": {"data": 1, "model": 1},
+          "backend": dist.get_backend(), "depth": cfg.n_layers, "depth_cut": False,
+          "d_model": cfg.d_model, "dtype": cfg.dtype, "params": n, "batch": batch, "seq": seq,
+          "param_placements": placements,
+          "prefill_ms": prefill_ms, "flash_launches": flash,
+          "flash_islands_bf16": islands, "flash_islands_f32": islands32,
+          "prefill_vs_plain_rel_l2": vs_plain,
+          "prefill_vs_plain_same_routes_rel_l2": vs_plain_same_routes,
+          "route_flips_vs_plain": flips,
+          "unsharded_prefill_vs_plain_rel_l2": unsharded_vs_plain,
+          "prefill_f32_vs_plain_rel_l2": f32_vs_plain,
+          "prefill8_vs_unsharded_rel_l2": short_vs, "cache8_vs_unsharded_rel_l2": cache_vs,
+          "prefill8_s": short_prefill_s,
+          "losses": [float(loss0), float(loss1)], "steps": log,
+          "dtensor_cost": dtensor,
+          "checkpoint_save_s": save_s, "checkpoint_restore_s": restore_s,
+          "restored_on_the_same_placements": same_placements,
+          "resumed_step_equals_straight": not differ, "leaves_differing": differ[:8],
+          "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "phase_s": time.perf_counter() - t_phase, "card": card_line()})
+    check(flash == cfg.n_layers, f"sharded prefill launched flash {flash} times, "
+          f"not once per attention layer ({cfg.n_layers})")
+    check_islands(islands, cfg.n_layers, "sharded bf16 prefill")
+    check(vs_plain_same_routes <= LM_BF16_REL_L2,
+          f"sharded bf16 prefill vs the plain route on the same expert choices: "
+          f"{vs_plain_same_routes} > {LM_BF16_REL_L2}")
+    check_islands(islands32, cfg.n_layers, "sharded f32 prefill")
+    check(f32_vs_plain <= SHARDED_F32_REL_L2,
+          f"sharded f32 prefill vs plain route: {f32_vs_plain}")
+    check(cache_vs <= LM_BF16_REL_L2, f"sharded 8-token prefill's cache vs unsharded: {cache_vs}")
+    check(same_placements, "restored parameters lost their placements")
+    check(not differ, f"sharded resumed step differs in {len(differ)} leaves: {differ[:4]}")
+    if torch.cuda.device_count() >= 2:
+        sharded_multi_card(root)
+        restore_on_one_card(root / "ckpt_multi", mesh)
+    else:
+        emit({"phase": "sharded_multi_card", "ran": False,
+              "reason": f"{torch.cuda.device_count()} CUDA device: the multi-card checks "
+                        "(EP over cards, data parallelism, elastic restore) need two or "
+                        "more; not run, not passed"})
+        restore_on_one_card(root / "ckpt", mesh)
+    shutil.rmtree(root, ignore_errors=True)
+    dist.destroy_process_group()
+    return counts
+
+
+def restore_on_one_card(ckdir, mesh) -> None:
+    """The step-1 parameters restored onto the (1, 1) mesh of this card,
+    ``torch.equal`` to the files (read onto the CPU)."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, param_shardings, production_rules
+    from repro_torch.tree import leaves
+
+    cfg = get_config(SHARDED_ARCH)
+    like = init_params(cfg, torch.Generator(device="cuda").manual_seed(1), "cuda")
+    ck = Checkpointer(ckdir)
+    got = ck.restore({"params": like}, shardings={
+        "params": param_shardings(like, mesh, production_rules())})
+    del like
+    want = ck.restore({"params": on_host_like(cfg)})
+    same = all(torch.equal(a.full_tensor().cpu(), b)
+               for a, b in zip(leaves(got["params"]), leaves(want["params"])))
+    emit({"phase": "sharded_restore", "ranks": 1, "exact": same})
+    check(same, "the checkpoint restored on one card differs from its files")
+
+
+def on_host_like(cfg):
+    """A tree of the parameters' structure whose leaves are numbers: the
+    ``Checkpointer`` then reads each leaf onto the host as it is stored."""
+    from repro_torch.models import init_params
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda _: 0, init_params(cfg, torch.Generator(), "meta"))
+
+
+def sharded_rank(world: int, root: str) -> dict:
+    """One rank of the multi-card run (NCCL, this process's card):
+    (a) the sharded prefill on a (1, world) mesh — experts, heads, d_ff over
+    the cards; the vocab of 49,155 replicated — against the (1, 1) logits
+    the parent saved, each flash launch held on this rank's own heads
+    (:func:`held_flash_islands`); (b) data parallelism on (world / 2, 2) in f32 (the
+    MoE with room for every token and no aux loss, so the whole batch's
+    loss is the same function) against this card's unsharded loss and
+    gradients on the whole batch (rank 0); (c) on (world / 2, 2), bf16: two
+    steps, the step-1 state saved by every rank (rank 0 writes), the
+    resumed step ``torch.equal`` to the straight one; per-rank step walls
+    and one profiled step's NCCL kernel time."""
+    from dataclasses import replace
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.data import LMDataPipeline
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import (
+        forward,
+        init_params,
+        lm_loss,
+        param_shardings,
+        production_rules,
+        use_sharding,
+    )
+    from repro_torch.models.sharding import distribute, shard
+    from repro_torch.tree import leaf_paths, leaves, tree_map
+
+    rank = dist.get_rank()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg, rules = get_config(SHARDED_ARCH), production_rules()
+    data = LMDataPipeline(cfg, 2, 512, seed=0, device=dev)
+    out = {"rank": rank, "device": str(dev)}
+
+    # (a) expert parallelism over the cards, in bf16 (read) and f32 (held)
+    mesh = make_mesh_for(world, world)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    sp = distribute(params, param_shardings(params, mesh, rules))
+    del params
+    out["placements_1xN"] = {"/".join(map(str, k)): str(v.placements)
+                             for k, v in leaf_paths(sp)
+                             if k[-1] in ("embed", "experts_gate", "wq", "wo", "router")}
+    for tag, c in (("", cfg), ("_f32", cfg.with_(dtype="float32"))):
+        held = []
+        with torch.no_grad(), use_sharding(mesh, rules), held_flash_islands(held):
+            p = sp if c is cfg else tree_map(lambda t: t.float(), sp)
+            logits = forward(c, p, data.peek(0)["inputs"])[0].full_tensor()
+            del p
+        out[f"flash_islands{tag or '_bf16'}"] = islands_summary(held)
+        if rank == 0:
+            ref = torch.load(Path(root) / f"logits_1x1{tag}.pt").to(dev)
+            out[f"ep_vs_1x1_rel_l2{tag}"] = rel_l2(logits, ref)
+            del ref
+        del logits
+    del sp
+    torch.cuda.empty_cache()
+
+    # (b) data parallelism against the whole batch on one card, f32, with
+    # room for every token and no aux loss (the whole batch's loss is then
+    # the same function): held with every token sent to every expert (no
+    # routing choice to flip), read with the published top-8
+    mesh2 = make_mesh_for(world, 2)
+    batch = data.peek(0)
+    names = ["/".join(map(str, k)) for k, _ in leaf_paths(init_params(
+        cfg, torch.Generator(), "meta"))]
+    for tag, k in (("", cfg.moe.n_experts), ("_top8", cfg.moe.top_k)):
+        moe = replace(cfg.moe, top_k=k, capacity_factor=cfg.moe.n_experts / k,
+                      router_aux_weight=0.0)
+        cfg32 = cfg.with_(dtype="float32", moe=moe)
+        p32 = init_params(cfg32, torch.Generator(device=dev).manual_seed(0), dev)
+        with use_sharding(mesh2, rules):
+            sp = tree_map(lambda t: t.requires_grad_(),
+                          distribute(p32, param_shardings(p32, mesh2, rules)))
+            sb = {key: shard(v, "batch", None) for key, v in batch.items()}
+            loss = lm_loss(cfg32, sp, sb).full_tensor()
+            grads = [g.redistribute(w.device_mesh, w.placements).full_tensor()
+                     for g, w in zip(torch.autograd.grad(loss, leaves(sp)), leaves(sp))]
+        del sp
+        if rank == 0:
+            p = tree_map(lambda t: t.requires_grad_(), p32)
+            ref = lm_loss(cfg32, p, batch)
+            errs = sorted(((rel_l2(g, r), n) for g, r, n in
+                           zip(grads, torch.autograd.grad(ref, leaves(p)), names)), reverse=True)
+            out[f"dp_loss{tag}"] = [float(loss.detach()), float(ref.detach())]
+            out[f"dp_grad_rel_l2_max{tag}"] = errs[0][0]
+            out[f"dp_grad_rel_l2_worst{tag}"] = errs[:4]
+            del p, ref
+        del p32, grads
+        torch.cuda.empty_cache()
+
+    # (c) two bf16 steps on (world / 2, 2), a checkpoint, the resumed step
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    sp = distribute(params, param_shardings(params, mesh2, rules))
+    del params
+    init_opt, step_fn = train.build_trainer(cfg, mesh2, rules, lr=3e-4, total_steps=2)
+    run, log = step_timer(step_fn)
+    _, p1, o1, _ = run(sp, init_opt(sp), None, data.peek(0))
+    del sp
+    ck = Checkpointer(Path(root) / "ckpt_multi")
+    ck.save(1, {"params": p1, "opt": o1})
+    _, p2, o2, _ = run(p1, o1, None, data.peek(1))
+    state = ck.restore({"params": p2, "opt": o2}, step=1)
+    _, p3, o3, _ = run(state["params"], state["opt"], None, data.peek(1))
+    out["resume_equal"] = all(local_equal(a, b) for a, b in
+                              zip(leaves({"p": p3, "o": o3}), leaves({"p": p2, "o": o2})))
+    wall = []
+
+    def profiled():
+        t0 = time.perf_counter()
+        run(state["params"], state["opt"], None, data.peek(1))
+        wall.append(time.perf_counter() - t0)
+
+    _, events = device_trace(profiled, f"sharded_step_rank{rank}")
+    kernels = [(a, b) for cat, _, _, a, b in events if cat == "kernel"]
+    nccl = [(a, b) for cat, name, _, a, b in events if cat == "kernel" and "nccl" in name.lower()]
+    out.update({"steps": log,
+                "profiled_step": {**trace_summary(events, wall[0]),
+                                  "nccl_ms": busy_us(nccl) / 1e3,
+                                  "nccl_share_of_step": busy_us(nccl) / (wall[0] * 1e6),
+                                  "nccl_share_of_kernel_time":
+                                      busy_us(nccl) / max(busy_us(kernels), 1e-9)},
+                "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30})
+    return out
+
+
+def elastic_rank(root: str) -> dict:
+    """One rank of a smaller group: the parameters the larger group saved,
+    restored onto a (1, world) mesh of this group, ``torch.equal`` to the
+    files."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import init_params, param_shardings, production_rules
+    from repro_torch.tree import leaves
+
+    world = dist.get_world_size()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = get_config(SHARDED_ARCH)
+    mesh = make_mesh_for(world, world)
+    like = init_params(cfg, torch.Generator(device=dev).manual_seed(1), dev)
+    ck = Checkpointer(Path(root) / "ckpt_multi")
+    got = ck.restore({"params": like}, shardings={
+        "params": param_shardings(like, mesh, production_rules())})
+    del like
+    full = [t.full_tensor().cpu() for t in leaves(got["params"])]
+    if dist.get_rank() != 0:
+        return {}
+    want = ck.restore({"params": on_host_like(cfg)})
+    return {"exact": all(torch.equal(a, b) for a, b in zip(full, leaves(want["params"]))),
+            "placements": sorted({str(t.placements) for t in leaves(got["params"])})}
+
+
+def sharded_multi_card(root: Path) -> None:
+    """One process a card (``repro_torch.launch.mesh.spawn``: NCCL, a
+    ``file://`` store in a temporary directory, a join timeout): expert
+    parallelism, data parallelism, a bitwise resume and a checkpoint
+    written on every card, then restored on half the cards and (by the
+    caller) on one."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn
+
+    world = 4 if torch.cuda.device_count() >= 4 else 2
+    t0 = time.perf_counter()
+    ranks = spawn(sharded_rank, world, world, str(root), device_type="cuda",
+                  join_timeout_s=600, pg_timeout_s=300)
+    wall_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    half = spawn(elastic_rank, world // 2, str(root), device_type="cuda",
+                 join_timeout_s=300, pg_timeout_s=300)[0]
+    r0 = ranks[0]
+    record = {"phase": "sharded_multi_card", "ran": True, "world": world,
+              "meshes": {"ep": [1, world], "dp": [world // 2, 2]},
+              "ep_vs_1x1_rel_l2": r0["ep_vs_1x1_rel_l2"],
+              "ep_vs_1x1_rel_l2_f32": r0["ep_vs_1x1_rel_l2_f32"],
+              "placements_1xN": r0["placements_1xN"],
+              "flash_islands_bf16_by_rank": [r["flash_islands_bf16"] for r in ranks],
+              "flash_islands_f32_by_rank": [r["flash_islands_f32"] for r in ranks],
+              "dp_loss_sharded_vs_whole": r0["dp_loss"],
+              "dp_grad_rel_l2_max": r0["dp_grad_rel_l2_max"],
+              "dp_grad_rel_l2_worst": r0["dp_grad_rel_l2_worst"],
+              "dp_loss_sharded_vs_whole_top8": r0["dp_loss_top8"],
+              "dp_grad_rel_l2_max_top8": r0["dp_grad_rel_l2_max_top8"],
+              "dp_grad_rel_l2_worst_top8": r0["dp_grad_rel_l2_worst_top8"],
+              "resume_equal_by_rank": [r["resume_equal"] for r in ranks],
+              "step_ms_by_rank": [[s["ms"] for s in r["steps"]] for r in ranks],
+              "step_cpu_s_by_rank": [[s["cpu_s"] for s in r["steps"]] for r in ranks],
+              "profiled_step_by_rank": [r["profiled_step"] for r in ranks],
+              "peak_memory_gib_by_rank": [r["peak_memory_gib"] for r in ranks],
+              "restored_on": world // 2, "restore_exact": half["exact"],
+              "restore_placements": half["placements"],
+              "wall_s": wall_s, "restore_wall_s": time.perf_counter() - t0,
+              "card": card_line()}
+    emit(record)
+    layers = get_config(SHARDED_ARCH).n_layers
+    for r in ranks:
+        check_islands(r["flash_islands_bf16"], layers, f"rank {r['rank']} bf16 (1, {world})")
+        check_islands(r["flash_islands_f32"], layers, f"rank {r['rank']} f32 (1, {world})")
+    check(r0["ep_vs_1x1_rel_l2_f32"] <= SHARDED_F32_REL_L2,
+          f"EP on (1, {world}) vs (1, 1) in f32: {r0['ep_vs_1x1_rel_l2_f32']}")
+    check(abs(r0["dp_loss"][0] - r0["dp_loss"][1]) <= 1e-4 * abs(r0["dp_loss"][1]),
+          f"data-parallel loss vs the whole batch: {r0['dp_loss']}")
+    check(r0["dp_grad_rel_l2_max"] <= DP_GRAD_REL_L2,
+          f"data-parallel gradients vs the whole batch: {r0['dp_grad_rel_l2_max']}")
+    check(all(r["resume_equal"] for r in ranks), "multi-card resumed step differs")
+    check(half["exact"], f"checkpoint from {world} ranks restored on {world // 2} differs")
+
+
 def main() -> int:
     only = sys.argv[1:]
-    if only not in ([], ["--only", "train"], ["--only", "lm_families"]):
-        print("usage: python3 chip_smoke.py [--only train|lm_families]", file=sys.stderr)
+    if only not in ([], ["--only", "train"], ["--only", "lm_families"], ["--only", "sharded"]):
+        print("usage: python3 chip_smoke.py [--only train|lm_families|sharded]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2121,7 +2760,8 @@ def main() -> int:
                 "flash_attention": flash_ops.flash_attention,
                 "gemm_dataflow": gemm_ops.gemm}
     if only:  # one phase alone, in a process nothing else ran in
-        {"train": phase_train, "lm_families": phase_lm_families}[only[1]](dev, counters)
+        {"train": phase_train, "lm_families": phase_lm_families,
+         "sharded": phase_sharded}[only[1]](dev, counters)
         print(card_line(), flush=True)
         return 0
     phase_build([spmm_ops.LIBRARY, fused_ops.LIBRARY, flash_ops.LIBRARY,
@@ -2139,7 +2779,7 @@ def main() -> int:
     del held
     runs.append(phase_train(dev, counters))
     runs += [phase_gemm(dev, counters), phase_lm_serve(dev, counters),
-             phase_lm_families(dev, counters)]
+             phase_lm_families(dev, counters), phase_sharded(dev, counters)]
     for run in runs:
         for k, n in run.items():
             launches[k] += n

@@ -456,7 +456,7 @@ class Program:
         The other ``use_pallas`` layers run the eager path and train, as
         in the reference.  A ``pp`` layer on a mesh of two CUDA devices or
         streams raises ``NotImplementedError``: the two-stream pipeline is
-        not differentiated (ROADMAP, the sharding item).
+        not differentiated yet (ROADMAP Queue 1 item 6b, slice 10).
         """
         reached = sorted({
             f"{s.policy}/{s.order}" for s in self.specs
@@ -484,8 +484,8 @@ class Program:
                 if any(d.type == "cuda" for d in mesh_devices(mesh)[:2]):
                     raise NotImplementedError(
                         "train_step: the two-stream Parallel Pipeline on a "
-                        "CUDA mesh is not differentiated yet (ROADMAP Queue 1, "
-                        "the sharding item); train with mesh=None"
+                        "CUDA mesh is not differentiated yet (ROADMAP Queue 1 "
+                        "item 6b, slice 10); train with mesh=None"
                     )
         for i, layer in enumerate(params):
             for k, v in layer.items():

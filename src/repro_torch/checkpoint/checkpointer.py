@@ -14,8 +14,16 @@ checkpoint.  ``keep`` old checkpoints are retained.
 bfloat16 leaves are written as the reference writes them: the raw 2-byte
 words under the descriptor ``<V2`` with manifest dtype ``"bfloat16"``.
 They go through an ``int16`` view both ways, so neither side needs a
-bfloat16 numpy type.  The reference's ``restore(shardings=...)`` (elastic
-restore onto another mesh) comes with the port's sharding item (ROADMAP).
+bfloat16 numpy type.
+
+On a device mesh the leaves are DTensors.  ``save`` is then called on
+every rank: each leaf is gathered whole (``full_tensor``), only rank 0
+writes (the same files, byte for byte), and every rank waits at a barrier
+until the rename has published the step.  ``restore(like, step,
+shardings=)`` puts each whole array onto the mesh and placements it is
+given (a tree of :class:`repro_torch.models.sharding.NamedSharding`), or
+onto those of ``like``'s DTensor leaves: the elastic path, where a
+checkpoint from N ranks restores onto M.
 """
 from __future__ import annotations
 
@@ -42,10 +50,39 @@ def _leaf_keys(tree) -> list[tuple[str, object]]:
 
 def _to_host(leaf):
     """A tensor copied to host memory (the step that follows may reuse
-    the device buffer); other leaves as they are."""
+    the device buffer), a DTensor gathered whole first; other leaves as
+    they are."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True)
+        leaf = leaf.detach()
+        if hasattr(leaf, "full_tensor"):
+            leaf = leaf.full_tensor()
+        return leaf.to("cpu", copy=True)
     return leaf
+
+
+def _distributed() -> bool:
+    return torch.distributed.is_available() and torch.distributed.is_initialized()
+
+
+def _place(t: torch.Tensor, sharding, like):
+    """A restored whole array put where it belongs: onto ``sharding``'s
+    mesh and placements, else onto ``like``'s (a DTensor's placements, a
+    tensor's dtype and device)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    if sharding is not None:
+        mesh, placements = sharding.mesh, sharding.placements()
+    elif isinstance(like, DTensor):
+        mesh, placements = like.device_mesh, like.placements
+    else:
+        if isinstance(like, torch.Tensor):
+            t = t.to(device=like.device, dtype=like.dtype)
+        return t
+    if isinstance(like, torch.Tensor):
+        t = t.to(dtype=like.dtype)
+    t = t.to(torch.device(mesh.device_type, torch.cuda.current_device())
+             if mesh.device_type == "cuda" else mesh.device_type)
+    return distribute_tensor(t, mesh, placements, src_data_rank=None)
 
 
 def _save_npy(path: Path, leaf) -> tuple[str, list[int]]:
@@ -85,8 +122,15 @@ class Checkpointer:
     # -- save ----------------------------------------------------------------
     def save(self, step: int, state: dict) -> None:
         """state: tree dict (params/opt/data/step...).  Async if enabled;
-        the tensors are copied to the host before this returns."""
+        the tensors are copied to the host before this returns.  Under a
+        process group every rank calls it; rank 0 writes and the others wait
+        for the step to be published (synchronous then)."""
         host_state = unflatten(state, [_to_host(l) for _, l in _leaf_keys(state)])
+        if _distributed():
+            if torch.distributed.get_rank() == 0:
+                self._write(step, host_state)
+            torch.distributed.barrier()
+            return
         if self._queue is not None:
             if self._error:
                 raise self._error
@@ -147,10 +191,14 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, like, step: int | None = None):
+    def restore(self, like, step: int | None = None, shardings=None):
         """Rebuild the tree ``like`` from disk: a tensor leaf of ``like``
         gives its dtype and device to the restored leaf; any other leaf
-        (a number) comes back as a CPU tensor of the stored dtype."""
+        (a number) comes back as a CPU tensor of the stored dtype.
+        ``shardings`` (a tree congruent with ``like`` of ``NamedSharding``
+        or None) re-shards onto a mesh — the elastic path: a checkpoint
+        from N ranks restores onto M.  A DTensor leaf of ``like`` with no
+        sharding given keeps its own mesh and placements."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -158,13 +206,13 @@ class Checkpointer:
         manifest = json.loads((root / "manifest.json").read_text())
         by_key = {l["key"]: l for l in manifest["leaves"]}
 
+        by_path = dict(_leaf_keys(shardings)) if shardings is not None else {}
         leaves = []
         for key, leaf_like in _leaf_keys(like):
+            shd = by_path.get(key)
             entry = by_key.get(key)
             if entry is None:
                 raise KeyError(f"checkpoint at step {step} missing leaf {key!r}")
             t = _load_npy(root / "arrays" / entry["file"], entry["dtype"])
-            if isinstance(leaf_like, torch.Tensor):
-                t = t.to(device=leaf_like.device, dtype=leaf_like.dtype)
-            leaves.append(t)
+            leaves.append(_place(t, shd, leaf_like))
         return unflatten(like, leaves)

@@ -16,8 +16,15 @@ dataflow:
 Supports GQA (n_kv_heads < n_heads, grouped einsums — no KV repetition),
 sliding-window masks, and single-token decode against a (possibly
 ring-buffered) KV cache.  Decode stays plain PyTorch, as the reference
-computes it outside any kernel.  There is no device mesh in the port, so
-the reference's tensor-parallel head alignment is always the identity.
+computes it outside any kernel.
+
+On a device mesh (:mod:`.sharding`) the heads shard over the rules'
+``heads`` axis, after the reference's tensor-parallel head alignment
+(:func:`head_alignment`, sized by the mesh).  The attention itself — the
+flash kernel, its plain version, decode against the cache — runs on each
+rank's own heads and batch rows through ``local_map``: the kernel never
+sees a DTensor.  q, k and v always share their head placement, so a
+shard's query heads find their KV heads on the same rank.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..kernels.flash_attention import attend
@@ -34,6 +42,7 @@ from ..kernels.flash_attention import attend
 from ..kernels.flash_attention.ref import attend_chunked as _attend_chunked
 from .config import ArchConfig
 from .layers import normal, rope, torch_dtype
+from .sharding import axis_size, current_mesh, current_rules, on_shards, shard
 
 NEG_INF = -1e30
 INT32_MAX = int(np.iinfo(np.int32).max)
@@ -52,15 +61,27 @@ def init_attention(cfg: ArchConfig, generator: torch.Generator,
     }
 
 
+def _tp_size() -> int:
+    """The tensor-parallel size: the mesh's ``heads`` axes, 1 without a
+    mesh."""
+    rules, mesh = current_rules(), current_mesh()
+    if rules is None or mesh is None or rules.heads is None:
+        return 1
+    return axis_size(mesh, rules.heads)
+
+
 def head_alignment(cfg: ArchConfig, ts: int | None = None):
     """TP head alignment: (kv_rep, g_new, aligned?).
 
-    ``ts`` is the tensor-parallel size; the port has no mesh, so it
-    defaults to 1, where no alignment is needed.  For ``ts > 1`` this
-    reproduces the reference's arithmetic (pad the per-KV query groups and
-    replicate KV heads when the FLOP overhead is <= 2x).
+    When the tensor-parallel size ``ts`` (default: the current mesh's, 1
+    without one) does not divide the head counts, pad the per-KV query
+    groups and *replicate* KV heads so both head dims divide the TP axis.
+    Replication preserves semantics exactly (each real query head still
+    attends its original KV head; padded query slots have zero wq columns
+    and zero wo rows, so they contribute nothing).  Applied only when the
+    FLOP overhead is <= 2x.
     """
-    ts = 1 if ts is None else ts
+    ts = _tp_size() if ts is None else ts
     hkv = cfg.n_kv_heads
     g = cfg.n_heads // hkv
     if ts <= 1 or (hkv % ts == 0 and cfg.n_heads % ts == 0):
@@ -78,18 +99,50 @@ def aligned_kv_heads(cfg: ArchConfig, ts: int | None = None) -> int:
 
 
 def _align_weights(cfg: ArchConfig, p: dict):
-    """Projection weights as the heads are laid out: without a mesh
-    :func:`head_alignment` gives ``rep == 1``, so the weights themselves."""
-    return p["wq"], p["wk"], p["wv"], p["wo"]
+    """Runtime-padded projection weights for TP alignment (the weights
+    themselves when already aligned).  On a mesh the padding is computed
+    on the whole weights and the result resharded over the heads."""
+    rep, g_new, _ = head_alignment(cfg)
+    hd, hkv = cfg.head_dim, cfg.n_kv_heads
+    g = cfg.n_heads // hkv
+    if rep == 1 and g_new == g:
+        return p["wq"], p["wk"], p["wv"], p["wo"]
+    full = [t.full_tensor() if hasattr(t, "full_tensor") else t
+            for t in (p["wq"], p["wk"], p["wv"], p["wo"])]
+    d = full[0].shape[0]
+    gp = rep * g_new
+    wq = F.pad(full[0].reshape(d, hkv, g, hd), (0, 0, 0, gp - g))
+    wq = wq.reshape(d, hkv * rep, g_new, hd).reshape(d, -1)
+    wk = torch.repeat_interleave(full[1].reshape(d, hkv, hd), rep, dim=1).reshape(d, -1)
+    wv = torch.repeat_interleave(full[2].reshape(d, hkv, hd), rep, dim=1).reshape(d, -1)
+    wo = F.pad(full[3].reshape(hkv, g, hd, d), (0, 0, 0, 0, 0, gp - g))
+    wo = wo.reshape(hkv * rep, g_new, hd, d).reshape(-1, d)
+    return (shard(wq, None, "heads"), shard(wk, None, "heads"),
+            shard(wv, None, "heads"), shard(wo, "heads", None))
+
+
+def _heads_axis(cfg: ArchConfig) -> str | None:
+    """``"heads"`` where the mesh divides both aligned head counts, else
+    None (attention then runs on every head on each rank): q, k, v and the
+    KV cache take the same head placement, so a rank's query heads find
+    their KV heads on that rank."""
+    ts = _tp_size()
+    rep, g_new, _ = head_alignment(cfg, ts)
+    hkv = cfg.n_kv_heads * rep
+    return "heads" if hkv % ts == 0 and (hkv * g_new) % ts == 0 else None
 
 
 def _project_qkv(cfg: ArchConfig, p: dict, x: torch.Tensor, positions):
     b, s, _ = x.shape
     hd = cfg.head_dim
+    rep, g_new, _ = head_alignment(cfg)
+    hkv = cfg.n_kv_heads * rep
+    hq = hkv * g_new
+    heads = _heads_axis(cfg)
     wq, wk, wv, _ = _align_weights(cfg, p)
-    q = (x @ wq).reshape(b, s, cfg.n_heads, hd)
-    k = (x @ wk).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (x @ wv).reshape(b, s, cfg.n_kv_heads, hd)
+    q = shard((x @ wq).reshape(b, s, hq, hd), "batch", None, heads, None)
+    k = shard((x @ wk).reshape(b, s, hkv, hd), "batch", None, heads, None)
+    v = shard((x @ wv).reshape(b, s, hkv, hd), "batch", None, heads, None)
     return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
 
 
@@ -135,13 +188,15 @@ def attention(
     q, k, v = _project_qkv(cfg, p, x, positions)
     pos1 = positions[0] if positions.dim() > 1 else positions
     if cfg.attn_policy == "seq":
-        out = _attend_seq(q, k, v, pos1, pos1, window)
+        core = _attend_seq
     elif use_kernels:
-        out = attend(q, k, v, pos1, pos1, window, cfg.attn_chunk)
+        core = attend
     else:
-        out = _attend_chunked(q, k, v, pos1, pos1, window, cfg.attn_chunk)
+        core = _attend_chunked
+    extra = (pos1, pos1, window) + ((cfg.attn_chunk,) if core is not _attend_seq else ())
+    out = on_shards(core, q, k, v, extra=extra)
     _, _, _, wo = _align_weights(cfg, p)
-    return out.reshape(b, s, -1) @ wo
+    return shard(out.reshape(b, s, -1) @ wo, "batch", "sequence", None)
 
 
 # ---------------------------------------------------------------------------
@@ -157,6 +212,7 @@ class KVCache(NamedTuple):
     def zeros(cls, cfg: ArchConfig, batch: int, length: int, window: int = 0,
               device=None):
         size = min(length, window) if window > 0 else length
+        # TP-aligned KV head count (replicated KV under tensor parallelism)
         shape = (batch, size, aligned_kv_heads(cfg), cfg.head_dim)
         dev, dt = resolve_device(device), torch_dtype(cfg)
         return cls(torch.zeros(shape, dtype=dt, device=dev),
@@ -183,8 +239,6 @@ def decode_attention(
     q, k_new, v_new = _project_qkv(cfg, p, x, positions)
     size = cache.k.shape[1]
     slot = cur_index % size if window > 0 else cur_index
-    cache.k[:, slot] = k_new[:, 0]
-    cache.v[:, slot] = v_new[:, 0]
 
     # absolute positions held by each cache slot
     slots = torch.arange(size, dtype=torch.int64, device=x.device)
@@ -198,12 +252,20 @@ def decode_attention(
     if window > 0:
         valid &= k_pos > cur_index - window
     k_pos = torch.where(valid, k_pos, INT32_MAX)
+    live = (k_pos <= cur_index)[None, None, None, None]
 
-    qg = _group(q, cache.k.shape[2]).float() / np.sqrt(cfg.head_dim)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, cache.k.float())
-    s = torch.where((k_pos <= cur_index)[None, None, None, None], s, NEG_INF)
-    pattn = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", pattn, cache.v.float())
-    out = out.reshape(b, 1, -1).to(x.dtype)
+    def attend_cache(q, k_new, v_new, ck, cv):
+        # this rank's batch rows and heads; the slot is written in place
+        # into the cache's own storage
+        ck[:, slot] = k_new[:, 0]
+        cv[:, slot] = v_new[:, 0]
+        qg = _group(q, ck.shape[2]).float() / np.sqrt(cfg.head_dim)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, ck.float())
+        s = torch.where(live, s, NEG_INF)
+        pattn = torch.softmax(s, dim=-1)
+        out = torch.einsum("bhgqk,bkhd->bqhgd", pattn, cv.float())
+        return out.reshape(q.shape).to(q.dtype)
+
+    out = on_shards(attend_cache, q, k_new, v_new, cache.k, cache.v)
     _, _, _, wo = _align_weights(cfg, p)
-    return out @ wo, cache
+    return shard(out.reshape(b, 1, -1) @ wo, "batch", None, None), cache

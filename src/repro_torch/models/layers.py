@@ -1,8 +1,8 @@
 """Shared LM layers: norms, rotary embeddings, gated MLPs, heads.
 
-The port of :mod:`repro.models.layers`.  Without a device mesh the
-reference's ``shard(...)`` annotations are the identity, so they are
-dropped here.  Initialisers draw from an explicit ``torch.Generator`` on
+The port of :mod:`repro.models.layers`, with the reference's ``shard(...)``
+annotations (:mod:`.sharding`): without a device mesh the annotations are
+the identity.  Initialisers draw from an explicit ``torch.Generator`` on
 the generator's own device and place the result on ``device``.
 """
 from __future__ import annotations
@@ -15,6 +15,7 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from .config import ArchConfig
+from .sharding import shard
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -28,7 +29,11 @@ def torch_dtype(cfg: ArchConfig) -> torch.dtype:
 
 def normal(generator: torch.Generator, shape, scale: float, dtype, device):
     """``N(0, 1) * scale`` drawn in float32 from ``generator``, cast to
-    ``dtype`` and placed on ``device`` (the reference's init recipe)."""
+    ``dtype`` and placed on ``device`` (the reference's init recipe).  On
+    the ``meta`` device only the shape and dtype are made (nothing is
+    drawn): the reference's ``jax.eval_shape`` of an init."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     x = torch.randn(shape, generator=generator, device=generator.device)
     return (x * scale).to(dtype).to(device)
 
@@ -113,8 +118,12 @@ def _act(cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    h = _act(cfg, x @ p["w_gate"]) * (x @ p["w_up"])
-    return h @ p["w_down"]
+    g = shard(x @ p["w_gate"], "batch", None, "d_ff")
+    u = shard(x @ p["w_up"], "batch", None, "d_ff")
+    h = _act(cfg, g) * u
+    # sequence-parallel residual stream: reduce-scatter instead of
+    # all-reduce when rules.sequence is set (Megatron-SP)
+    return shard(h @ p["w_down"], "batch", "sequence", None)
 
 
 # ---------------------------------------------------------------------------
@@ -135,11 +144,45 @@ def init_embeddings(cfg: ArchConfig, generator: torch.Generator,
 
 
 def embed_tokens(cfg: ArchConfig, params: dict, tokens: torch.Tensor):
-    return params["embed"][tokens]
+    tokens = shard(tokens, "batch", *(None,) * (tokens.dim() - 1))
+    w = params["embed"]
+    h = _sharded_lookup(w, tokens) if hasattr(w, "placements") else w[tokens]
+    return shard(h, "batch", "sequence", None)
+
+
+def _sharded_lookup(w, tokens):
+    """``w[tokens]`` for a DTensor table, on each rank's own rows: where the
+    vocab is sharded (Megatron's vocab-parallel embedding) each rank looks
+    up the tokens in its block of rows and zeros the rest, and the result
+    is a partial sum over those mesh dims.  (DTensor's own rules for this
+    gather differ between PyTorch versions; this is one plain gather.)"""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    w = shard(w, "vocab", None)
+    mesh = w.device_mesh
+    vocab_dims = [i for i, pl in enumerate(w.placements) if pl.is_shard(0)]
+    # the table's gradient: its own rows on vocab dims, a partial sum where
+    # ranks saw different tokens
+    w_grad = [pl if i in vocab_dims else
+              (Partial() if tokens.placements[i].is_shard() else Replicate())
+              for i, pl in enumerate(w.placements)]
+    w_loc = w.to_local(grad_placements=w_grad)
+    tok = tokens.to_local()
+    if vocab_dims:
+        rows, block = w_loc.shape[0], 0
+        for i in vocab_dims:  # this rank's block of rows, row-major over the dims
+            block = block * mesh.size(i) + mesh.get_local_rank(i)
+        tok = tok - block * rows
+        mine = (tok >= 0) & (tok < rows)
+        h = w_loc[torch.where(mine, tok, 0)] * mine[..., None].to(w_loc.dtype)
+    else:
+        h = w_loc[tok]
+    out_pl = [Partial() if i in vocab_dims else pl for i, pl in enumerate(tokens.placements)]
+    return DTensor.from_local(h, mesh, out_pl, run_check=False)
 
 
 def logits_head(cfg: ArchConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
     w = params.get("lm_head")
     if w is None:  # tied
         w = params["embed"].T
-    return h @ w
+    return shard(h @ w, "batch", None, "vocab")

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from ..device import resolve_device
 from .config import ArchConfig
 from .layers import normal, torch_dtype
+from .sharding import on_shards, shard
 
 _C = 8.0
 
@@ -103,14 +104,16 @@ def _linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def rglru_block(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    """Full-sequence forward (training / prefill), a log-depth scan over S."""
-    u = x @ p["rg_in"]
-    g = x @ p["rg_gate"]
+    """Full-sequence forward (training / prefill), a log-depth scan over S.
+    On a mesh the scan runs on each rank's rows and channels."""
+    u = shard(x @ p["rg_in"], "batch", None, "d_ff")
+    g = shard(x @ p["rg_gate"], "batch", None, "d_ff")
     u, _ = _causal_conv(p, u)
     a_t, b_t = _gates(p, u)
-    h = _linear_scan(a_t, b_t)
+    h = on_shards(_linear_scan, shard(a_t, "batch", None, "d_ff"),
+                  shard(b_t, "batch", None, "d_ff"))
     out = F.gelu(g.float(), approximate="tanh") * h
-    return out.to(x.dtype) @ p["rg_out"]
+    return shard(out.to(x.dtype) @ p["rg_out"], "batch", "sequence", None)
 
 
 def rglru_decode(cfg: ArchConfig, p: dict, x: torch.Tensor,

@@ -11,7 +11,10 @@ and ``slstm``.
 
 Decode updates the cache in place: each layer's state is a view into the
 stacked cache, so a KV slot is written and a recurrent state is copied
-into its view (``copy_``), never rebound.
+into its view (``copy_``), never rebound.  On a device mesh the cache is
+made of DTensors (batch over the data axes, KV heads over the model axis
+where it divides them); each write lands in the rank's own slice, after
+the new state is redistributed to the slice's placements.
 """
 from __future__ import annotations
 
@@ -20,7 +23,13 @@ import torch
 
 from ..device import resolve_device
 from ..tree import leaves
-from .attention import KVCache, attention, decode_attention, init_attention
+from .attention import (
+    KVCache,
+    _heads_axis,
+    attention,
+    decode_attention,
+    init_attention,
+)
 from .config import ArchConfig
 from .layers import (
     embed_tokens,
@@ -33,6 +42,7 @@ from .layers import (
     torch_dtype,
 )
 from .moe import init_moe, moe_ffn
+from .sharding import shard, to_dtensor
 from .rglru import RGLRUState, init_rglru, rglru_block, rglru_decode
 from .xlstm import (
     MLSTMState,
@@ -118,9 +128,17 @@ def init_block_state(cfg: ArchConfig, kind: str, batch: int, max_len: int,
 
 def _write(state, new):
     """Copy a recurrent state's new tensors into ``state``'s (views into
-    the stacked cache); returns ``state``."""
+    the stacked cache); returns ``state``.  A DTensor view is written
+    through its local slice, with the new state first redistributed to the
+    view's placements (never copied onto a view of another layout)."""
     for dst, src in zip(state, new):
-        dst.copy_(src)
+        if hasattr(dst, "placements"):
+            src = to_dtensor(src, dst.device_mesh)
+            if src.placements != dst.placements:
+                src = src.redistribute(dst.device_mesh, dst.placements)
+            dst.to_local().copy_(src.to_local())
+        else:
+            dst.copy_(src)
     return state
 
 
@@ -249,7 +267,7 @@ def forward(cfg: ArchConfig, params: dict, inputs: torch.Tensor, positions=None,
     Returns (logits, aux_loss).  ``use_kernels=False`` runs the plain
     version of every kernel, on any device."""
     b, s = inputs.shape[:2]
-    h = _embed(cfg, params, inputs)
+    h = shard(_embed(cfg, params, inputs), "batch", "sequence", None)
     if positions is None:
         positions = _positions(b, s, h.device)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -267,16 +285,32 @@ def forward(cfg: ArchConfig, params: dict, inputs: torch.Tensor, positions=None,
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None):
-    """Decode-state tree matching the stacked/remainder structure."""
+    """Decode-state tree matching the stacked/remainder structure.  On a
+    mesh every state is sharded over the batch, and KV heads as the
+    attention projections shard them."""
     dev = resolve_device(device)
     reps, pat, rem = _layer_plan(cfg)
     scanned = [
-        _stack([init_block_state(cfg, kind, batch, max_len, dev)
-                for _ in range(reps)]) if reps else None
+        _shard_state(cfg, kind, _stack([init_block_state(cfg, kind, batch, max_len, dev)
+                                        for _ in range(reps)]), stacked=True)
+        if reps else None
         for kind in pat
     ]
-    remainder = [init_block_state(cfg, kind, batch, max_len, dev) for kind in rem]
+    remainder = [_shard_state(cfg, kind, init_block_state(cfg, kind, batch, max_len, dev))
+                 for kind in rem]
     return {"scanned": scanned, "remainder": remainder}
+
+
+def _shard_state(cfg: ArchConfig, kind: str, state, stacked: bool = False):
+    """A block's decode state placed on the current mesh (as it is without
+    one): KV (B, S, H, D) over batch and heads, recurrent states over the
+    batch only, as the reference pins them."""
+    lead = (None,) if stacked else ()
+    if kind in ("attn", "local", "moe"):
+        spec = lead + ("batch", None, _heads_axis(cfg), None)
+        return type(state)(*(shard(t, *spec) for t in state))
+    return type(state)(*(shard(t, *lead, "batch", *(None,) * (t.dim() - len(lead) - 1))
+                         for t in state))
 
 
 def decode_step(cfg: ArchConfig, params: dict, cache, tokens: torch.Tensor, index):
@@ -286,7 +320,7 @@ def decode_step(cfg: ArchConfig, params: dict, cache, tokens: torch.Tensor, inde
     position.  Returns (logits (B, 1, vocab), cache); the cache's tensors
     are updated in place (each layer's KV slot ``index`` is written, each
     recurrent state overwritten)."""
-    h = _embed(cfg, params, tokens)
+    h = shard(_embed(cfg, params, tokens), "batch", None, None)
     reps, pat, rem = _layer_plan(cfg)
     for i in range(reps):
         for pos, kind in enumerate(pat):

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from ..device import resolve_device
 from .config import ArchConfig
 from .layers import normal, torch_dtype
+from .sharding import local_param, on_shards, shard
 
 # ---------------------------------------------------------------------------
 # mLSTM
@@ -123,10 +124,10 @@ def _mlstm_chunk(q, k, v, i_raw, log_f, state: MLSTMState):
     return h_out, MLSTMState(c_out, n_out, m_out)
 
 
-def mlstm_block(cfg: ArchConfig, p: dict, x: torch.Tensor, chunk: int = 256) -> torch.Tensor:
-    """Full-sequence mLSTM (training/prefill), chunk by chunk."""
-    b, s, d = x.shape
-    q, k, v, i_raw, log_f, o = _mlstm_qkv_gates(cfg, p, x)
+def _mlstm_scan(q, k, v, i_raw, log_f, chunk: int):
+    """The chunkwise mLSTM over (B, S, H, ...) from a zero state; returns
+    h (B, S, H, D)."""
+    b, s, h, hd = q.shape
     chunk = min(chunk, s)
     n_chunks = -(-s // chunk)
     pad = n_chunks * chunk - s
@@ -134,16 +135,28 @@ def mlstm_block(cfg: ArchConfig, p: dict, x: torch.Tensor, chunk: int = 256) -> 
         q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
         i_raw = F.pad(i_raw, (0, 0, 0, pad), value=-1e30)
         log_f = F.pad(log_f, (0, 0, 0, pad))
-    state = MLSTMState.zeros(cfg, b, x.device)
+    zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=q.device)  # noqa: E731
+    state = MLSTMState(zeros(b, h, hd, hd), zeros(b, h, hd),
+                       torch.full((b, h), -1e30, dtype=torch.float32, device=q.device))
     hs = []
     for c in range(n_chunks):
         blk = slice(c * chunk, (c + 1) * chunk)
         h_out, state = _mlstm_chunk(q[:, blk], k[:, blk], v[:, blk], i_raw[:, blk],
                                     log_f[:, blk], state)
         hs.append(h_out)
-    hs = torch.cat(hs, dim=1)[:, :s]
+    return torch.cat(hs, dim=1)[:, :s]
+
+
+def mlstm_block(cfg: ArchConfig, p: dict, x: torch.Tensor, chunk: int = 256) -> torch.Tensor:
+    """Full-sequence mLSTM (training/prefill), chunk by chunk; on a mesh
+    on each rank's rows and heads."""
+    b, s, d = x.shape
+    q, k, v, i_raw, log_f, o = _mlstm_qkv_gates(cfg, p, x)
+    per_head = [shard(t, "batch", None, "heads", None) for t in (q, k, v)]
+    gates = [shard(t, "batch", None, "heads") for t in (i_raw, log_f)]
+    hs = on_shards(_mlstm_scan, *per_head, *gates, extra=(chunk,))
     out = (o.reshape(b, s, d) * hs.reshape(b, s, d)).to(x.dtype)
-    return out @ p["lstm_out"]
+    return shard(out @ p["lstm_out"], "batch", "sequence", None)
 
 
 def mlstm_decode(cfg: ArchConfig, p: dict, x: torch.Tensor,
@@ -163,7 +176,7 @@ def mlstm_decode(cfg: ArchConfig, p: dict, x: torch.Tensor,
     den = torch.maximum(torch.einsum("bhd,bhd->bh", n, q).abs(), torch.exp(-m_new))
     h = num / den[..., None]
     out = (o[:, 0] * h.reshape(b, -1)).to(x.dtype)[:, None]
-    return out @ p["lstm_out"], MLSTMState(c, n, m_new)
+    return shard(out @ p["lstm_out"], "batch", None, None), MLSTMState(c, n, m_new)
 
 
 # ---------------------------------------------------------------------------
@@ -220,21 +233,33 @@ def _slstm_step(cfg: ArchConfig, p: dict, wx_t: torch.Tensor, state: SLSTMState)
     return SLSTMState(c, n, h, m_new)
 
 
-def slstm_block(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    """Full-sequence sLSTM: one recurrence step a position."""
-    b, s, d = x.shape
-    wx = x @ p["lstm_w"]  # (B, S, 4D)
-    state = SLSTMState.zeros(cfg, b, x.device)
+def _slstm_scan(cfg: ArchConfig, wx: torch.Tensor, lstm_r, bias) -> torch.Tensor:
+    """The sLSTM recurrence over wx (B, S, 4D) from a zero state; returns
+    h (B, S, D) in float32."""
+    p = {"lstm_r": lstm_r, "bias": bias}
+    state = SLSTMState.zeros(cfg, wx.shape[0], wx.device)
     hs = []
-    for t in range(s):
+    for t in range(wx.shape[1]):
         state = _slstm_step(cfg, p, wx[:, t], state)
         hs.append(state.h)
-    hs = torch.stack(hs, dim=1).to(x.dtype)  # (B, S, D)
-    return hs @ p["lstm_out"]
+    return torch.stack(hs, dim=1)
+
+
+def slstm_block(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Full-sequence sLSTM: one recurrence step a position.
+
+    The recurrence is pinned to batch-only sharding, as in the reference:
+    any model-axis sharding on the carry would put a collective inside the
+    loop over positions."""
+    wx = shard(x @ p["lstm_w"], "batch", None, None)  # (B, S, 4D)
+    hs = on_shards(lambda w, r, bias: _slstm_scan(cfg, w, r, bias), wx,
+                   extra=(local_param(p["lstm_r"], wx), local_param(p["bias"], wx)))
+    return shard(hs.to(x.dtype) @ p["lstm_out"], "batch", "sequence", None)
 
 
 def slstm_decode(cfg: ArchConfig, p: dict, x: torch.Tensor,
                  state: SLSTMState) -> tuple[torch.Tensor, SLSTMState]:
     wx = (x @ p["lstm_w"])[:, 0]
     state = _slstm_step(cfg, p, wx, state)
-    return state.h.to(x.dtype)[:, None] @ p["lstm_out"], state
+    out = state.h.to(x.dtype)[:, None] @ p["lstm_out"]
+    return shard(out, "batch", None, None), state

@@ -2,7 +2,10 @@
 
 The port of :mod:`repro.optim.adamw`.  State is a tree congruent with the
 parameters (``m``, ``v`` per leaf, float32); parameters keep their dtype,
-and every update is computed in float32 as in the reference.
+and every update is computed in float32 as in the reference.  On a device
+mesh the leaves are DTensors and the moments take each parameter's
+placements (as ``init_opt(params)`` under ``jit`` does in the reference's
+trainer); the global norm sums every shard.
 """
 from __future__ import annotations
 
@@ -38,7 +41,7 @@ def adamw(
 
     def init(params) -> AdamWState:
         zeros = lambda p: tree_map(  # noqa: E731
-            lambda x: torch.zeros(x.shape, dtype=torch.float32, device=x.device), p
+            lambda x: torch.zeros_like(x, dtype=torch.float32), p
         )
         return AdamWState(_step_zero(params), zeros(params), zeros(params))
 

@@ -3,9 +3,10 @@
 The port of :mod:`repro.optim.compression`: quantize each gradient leaf
 to int8 with a per-leaf scale, keep the quantization residual and add it
 back the next step (error feedback makes the compression unbiased over
-time).  The reference applies it on the data-parallel all-reduce; the
-port trains on one card, so ``--grad-compression int8`` runs the same
-quantize / dequantize round trip on the local gradients.
+time).  As in the reference's trainer, the round trip acts on the
+gradient after the data-parallel reduction (it is not an int8 collective):
+on a mesh the leaves are DTensors and each scale is the whole leaf's
+absolute maximum.
 """
 from __future__ import annotations
 
@@ -22,8 +23,7 @@ class EFState(NamedTuple):
 
 def init_error_feedback(grads_like) -> EFState:
     return EFState(tree_map(
-        lambda g: torch.zeros(g.shape, dtype=torch.float32, device=g.device),
-        grads_like,
+        lambda g: torch.zeros_like(g, dtype=torch.float32), grads_like,
     ))
 
 

@@ -780,3 +780,204 @@ def test_lm_training_resumes_bitwise_on_the_card(dev, tmp_path):
     p3, o3 = run(state["params"], state["opt"], range(3, 6))
     assert all(torch.equal(a, b) for a, b in zip(leaves(p1), leaves(p3)))
     assert all(torch.equal(a, b) for a, b in zip(leaves(o1), leaves(o3)))
+
+
+# ---------------------------------------------------------------------------
+# The LM on a device mesh (DTensor): one card as a (1, 1) NCCL mesh in this
+# process; over two or more cards, one spawned process a card
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def mesh_1x1(dev):
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_process_group, make_mesh_for
+
+    fresh = not dist.is_initialized()
+    init_process_group("cuda")
+    yield make_mesh_for(1, 1)
+    if fresh:
+        dist.destroy_process_group()
+
+
+def _rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def test_flash_through_local_map_on_a_mesh_matches_plain(dev, mesh_1x1):
+    """The sharded prefill launches the hand-written flash kernel once an
+    attention layer on each shard's heads, and its f32 logits are within
+    relative L2 1e-3 of the plain route's (two sum orders of one f32
+    function; in bf16 the routes' roundings flip top-k expert choices)."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models import param_shardings, production_rules, use_sharding
+    from repro_torch.models.sharding import distribute
+
+    cfg = get_config("granite-moe-1b-a400m").reduced(n_layers=3)
+    rules = production_rules()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    tokens = torch.randint(0, cfg.vocab, (2, 96), generator=torch.Generator().manual_seed(1)).to(dev)
+    sp = distribute(params, param_shardings(params, mesh_1x1, rules))
+    with torch.no_grad(), use_sharding(mesh_1x1, rules):
+        flash_ops.flash_attention.launches = 0
+        got, _ = forward(cfg, sp, tokens)
+        assert flash_ops.flash_attention.launches == cfg.n_layers
+        plain, _ = forward(cfg, sp, tokens, use_kernels=False)
+    assert _rel_l2(got.full_tensor(), plain.full_tensor()) <= 1e-3
+
+
+@pytest.mark.parametrize("hq,hkv", [(16, 8), (8, 4), (4, 2)],
+                         ids=["granite_heads", "granite_heads_over_2", "granite_heads_over_4"])
+def test_bf16_flash_through_local_map_matches_plain(dev, mesh_1x1, hq, hkv):
+    """bf16 flash through ``on_shards`` (``local_map``) on a (1, 1) mesh at
+    granite-moe's attention shape (B 2, S 512, D 64) and at the head counts
+    one shard holds on 2 and 4 cards: the tensor-core route, against the
+    plain version on the same inputs at 2e-2 (rtol and atol), and each
+    output row within relative L2 1e-2 of the f32 plain version."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import route
+    from repro_torch.models import production_rules, use_sharding
+    from repro_torch.models.sharding import on_shards
+
+    g = torch.Generator(device=dev).manual_seed(hq)
+    b, s, d = 2, 512, 64
+    q, k, v = (torch.randn(b, s, h, d, generator=g, device=dev).to(torch.bfloat16)
+               for h in (hq, hkv, hkv))
+    pos = torch.arange(s, dtype=torch.int32, device=dev)
+    views = [t.transpose(1, 2) for t in (q, k, v, torch.empty_like(q))]
+    assert route(torch.bfloat16, [(t.shape, t.stride()) for t in views],
+                 [t.data_ptr() for t in views]) == "tensor_cores"
+    with torch.no_grad(), use_sharding(mesh_1x1, production_rules()):
+        dq, dk, dv = (distribute_tensor(t, mesh_1x1, [Replicate(), Replicate()])
+                      for t in (q, k, v))
+        flash_ops.flash_attention.launches = 0
+        out = on_shards(attend, dq, dk, dv, extra=(pos, pos, 0, 512)).to_local()
+        assert flash_ops.flash_attention.launches == 1
+    torch.testing.assert_close(out, attend_chunked(q, k, v, pos, pos), rtol=2e-2, atol=2e-2)
+    ref32 = attend_chunked(q.float(), k.float(), v.float(), pos, pos)
+    assert float(((out.float() - ref32).norm(dim=-1) / ref32.norm(dim=-1)).max()) <= 1e-2
+
+
+def test_moe_ep_is_bit_stable_on_card(dev, mesh_1x1):
+    """``moe_ep`` on the card twice, forward and backward: the same bits
+    (no atomics in its combine or its scatter)."""
+    from repro_torch.models import production_rules, use_sharding
+    from repro_torch.models.moe import init_moe, moe_ffn
+    from repro_torch.models.sharding import distribute, param_shardings
+
+    cfg = get_config("granite-moe-1b-a400m").reduced(dtype="bfloat16")
+    rules = production_rules()
+    p = init_moe(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    x = torch.randn(4, 64, cfg.d_model, generator=torch.Generator(device=dev).manual_seed(2),
+                    device=dev).to(torch.bfloat16)
+
+    def once():
+        with use_sharding(mesh_1x1, rules):
+            sp = {k: v.requires_grad_() for k, v in
+                  distribute(p, param_shardings(p, mesh_1x1, rules)).items()}
+            out, aux = moe_ffn(cfg, sp, x)
+            loss = (out.float().square().mean() + aux).full_tensor()
+            grads = torch.autograd.grad(loss, list(sp.values()))
+        return [out.full_tensor(), aux.full_tensor()] + [g.full_tensor() for g in grads]
+
+    a, b = once(), once()
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def _ep_over_cards(x, tree):
+    """One rank: ``moe_ffn`` under a (1, world) mesh, whole, as numpy."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import params_from_numpy, production_rules, use_sharding
+    from repro_torch.models.moe import moe_ffn
+
+    from repro_torch.models.config import MoEConfig
+
+    world = dist.get_world_size()
+    cfg = get_config("granite-moe-1b-a400m").reduced(moe=MoEConfig(n_experts=8, top_k=2))
+    mesh = make_mesh_for(world, world)
+    with torch.no_grad(), use_sharding(mesh, production_rules()):
+        out, aux = moe_ffn(cfg, params_from_numpy(tree), torch.as_tensor(x).cuda())
+    return out.full_tensor().cpu().numpy(), float(aux.full_tensor())
+
+
+def test_moe_ep_over_cards_matches_one_card(dev, mesh_1x1):
+    """EP with the experts split over 2 or 4 cards (one process a card,
+    NCCL) against EP on this card's (1, 1) mesh: the same local capacity
+    (the data axis is 1), f32, rtol 1e-4, atol 1e-5."""
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models import production_rules, use_sharding
+    from repro_torch.models.config import MoEConfig
+    from repro_torch.models.moe import init_moe, moe_ffn
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    world = 4 if torch.cuda.device_count() >= 4 else 2
+    cfg = get_config("granite-moe-1b-a400m").reduced(moe=MoEConfig(n_experts=8, top_k=2))
+    p = init_moe(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    x = torch.randn(2, 32, cfg.d_model, generator=torch.Generator(device=dev).manual_seed(1),
+                    device=dev)
+    with torch.no_grad(), use_sharding(mesh_1x1, production_rules()):
+        want, want_aux = moe_ffn(cfg, p, x)
+    tree = {k: v.cpu().numpy() for k, v in p.items()}
+    got, aux = spawn(_ep_over_cards, world, x.cpu().numpy(), tree, device_type="cuda",
+                     join_timeout_s=300)[0]
+    np.testing.assert_allclose(got, want.full_tensor().cpu().numpy(), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(aux, float(want_aux.full_tensor()), rtol=1e-5)
+
+
+def _save_on_every_card(root):
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import param_shardings, production_rules
+    from repro_torch.models.sharding import distribute
+
+    cfg = get_config("granite-moe-1b-a400m").reduced()
+    world = dist.get_world_size()
+    mesh = make_mesh_for(world, 2)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    sp = distribute(params, param_shardings(params, mesh, production_rules()))
+    Checkpointer(root).save(1, {"params": sp})
+    return True
+
+
+def _restore_on_this_group(root):
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import param_shardings, production_rules
+    from repro_torch.tree import leaves
+
+    cfg = get_config("granite-moe-1b-a400m").reduced()
+    world = dist.get_world_size()
+    mesh = make_mesh_for(world, 1)
+    like = init_params(cfg, torch.Generator(device="cuda").manual_seed(5), "cuda")
+    got = Checkpointer(root).restore(
+        {"params": like}, shardings={"params": param_shardings(like, mesh, production_rules())})
+    return [t.full_tensor().cpu() for t in leaves(got["params"])]
+
+
+def test_checkpoint_from_every_card_restores_on_half_of_them(dev, tmp_path):
+    """Saved by 2 or 4 ranks ((1, 2) or (2, 2)), restored on half as many:
+    the parameters ``torch.equal`` to the ones saved."""
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.tree import leaves
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    world = 4 if torch.cuda.device_count() >= 4 else 2
+    spawn(_save_on_every_card, world, str(tmp_path / "ck"), device_type="cuda",
+          join_timeout_s=300)
+    got = spawn(_restore_on_this_group, world // 2, str(tmp_path / "ck"), device_type="cuda",
+                join_timeout_s=300)[0]
+    cfg = get_config("granite-moe-1b-a400m").reduced()
+    want = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    assert all(torch.equal(a, b.cpu()) for a, b in zip(got, leaves(want)))

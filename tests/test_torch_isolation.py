@@ -24,7 +24,9 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "repro_torch.graphs.partition, repro_torch.core.calibrate, "
         "repro_torch.launch.train, repro_torch.optim, repro_torch.data, "
         "repro_torch.checkpoint, repro_torch.models.moe, repro_torch.models.rglru, "
-        "repro_torch.models.xlstm, repro_torch.launch.analytic\n"
+        "repro_torch.models.xlstm, repro_torch.launch.analytic, "
+        "repro_torch.models.sharding, repro_torch.launch.mesh, "
+        "repro_torch.launch.specs\n"
         "import repro_torch.configs.gcn_paper\n"
         "from repro_torch.configs import all_configs\n"
         "all_configs()\n"

@@ -305,15 +305,6 @@ def test_params_from_numpy_carries_bf16_weights():
     np.testing.assert_array_equal(wq.float().numpy(), ref_wq.astype(np.float32))
 
 
-def test_moe_ep_raises_until_sharding_is_ported():
-    from repro_torch.models.moe import init_moe, moe_ffn
-
-    cfg = get_config("granite-moe-1b-a400m").reduced()
-    p = init_moe(cfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        moe_ffn(cfg, p, torch.zeros(1, 2, cfg.d_model), policy="ep")
-
-
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_init_params_and_forward_run_for_every_arch(arch):
     """Every arch of the registry builds and runs in the port (reduced,

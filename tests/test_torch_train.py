@@ -149,7 +149,7 @@ def test_train_step_on_a_cuda_mesh_is_refused(graphs):
     _, port, _, params = _pair(graphs, "gcn", "pp", "AC")
     _, (x, l, m) = _task(graphs)
     builds = repro_torch.trace_count()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6b"):
         port.train_step(params, x, l, m, mesh=["cuda:0", "cuda:0"])
     assert repro_torch.trace_count() == builds
 

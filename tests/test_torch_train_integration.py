@@ -327,7 +327,3 @@ class TestLaunchTrain:
     def test_compressed_main_runs(self, tmp_path, capsys):
         assert _main("--steps", "3", "--grad-compression", "int8") == 0
         assert "steps=3" in capsys.readouterr().out
-
-    def test_model_parallel_waits_for_the_sharding_item(self, tmp_path):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _main("--steps", "1", "--model-parallel", "2")
