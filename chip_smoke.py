@@ -5,6 +5,7 @@ any failure.
     python3 chip_smoke.py --only train         # phase 8 alone, in a fresh process
     python3 chip_smoke.py --only lm_families   # phase 11 alone, in a fresh process
     python3 chip_smoke.py --only sharded       # phase 12 alone (on 4 cards: also one process a card)
+    python3 chip_smoke.py --only dryrun        # phase 13 alone
 
 Phases, one JSON line each (no phase's error is caught):
 
@@ -98,7 +99,11 @@ Phases, one JSON line each (no phase's error is caught):
                 granite-moe-1b-a400m at its published widths (batch 2, seq
                 512): two steps, the second also run from the step-1 state
                 saved and restored by the ``Checkpointer``, ``torch.equal``
-                to the straight one.
+                to the straight one; cora GCN under a ``pp`` schedule
+                trained through the two-stream Parallel Pipeline
+                (``mesh=[cuda:0, cuda:0]``, and two cards where there are
+                two): the loss equal to ``mesh=None``'s, the parameters
+                within 2e-4, a repeated step bit-identical.
 9. gemm       — the dataflow GEMM's own entry point, the public op
                 ``gemm``, called once per dataflow on cora's layer-0
                 combination (on the model path it is the kernel tier's
@@ -139,13 +144,29 @@ Phases, one JSON line each (no phase's error is caught):
                 restored on half of them and on one, per-rank step walls
                 and a profiled step's NCCL time.  On one card that part
                 prints that it did not run.
+13. dryrun    — the multi-pod dry-run (``launch/dryrun.py``), its traces on
+                the CPU in two subprocesses started with the run (a fake
+                process group cannot share this process with NCCL): (a)
+                smollm-135m decode_32k on 16 x 16 and 2 x 16 x 16 and
+                granite-moe-1b-a400m train_4k on 16 x 16, their three
+                roofline terms on the H100's spec constants and the trace
+                seconds; (b) granite-moe at the sharded phase's shape
+                (published widths, bf16, 2 x 512) traced on a fake (1, 1)
+                mesh and run on a (1, 1) NCCL mesh on this card, train step
+                and kernel-route prefill: argument bytes and local FLOPs
+                (``FlopCounterMode`` on a warm step; flash through its
+                registered formula) held equal, flash launched once an
+                attention layer; the predicted peak against
+                ``max_memory_allocated`` and the roofline bound against the
+                warm wall read, not held.
 
-Launch counts are set to 0 just before phases 3-12 (each part of the engine
+Launch counts are set to 0 just before phases 3-13 (each part of the engine
 and async phases that serves the main path) and read just after;
 the ``{"kernels": [...]}`` line reports them.  The last line is
 ``{"ok": true, "device": {...}}``; it is printed only when every phase
 passed.  Weights and data are random, made from fixed seeds.
 """
+import atexit
 import contextlib
 import gc
 import json
@@ -1801,6 +1822,7 @@ def phase_train(dev, counters) -> dict:
     del params, opt, data, state
     torch.cuda.empty_cache()
     moe_train(dev, counters)
+    pp_train(dev, cora, spec, x, labels, mask)
     _, gnn["trace"] = traced_step(
         lambda: prog.train_step(gnn_params, x, labels, mask, lr=0.05), "train_gnn")
     emit(gnn | {"ok": True})
@@ -1808,6 +1830,58 @@ def phase_train(dev, counters) -> dict:
         launches[k] += counts[k]
     print(f"train phase wall {time.perf_counter() - t_phase:.3f} s", flush=True)
     return launches
+
+
+def pp_train(dev, cora, spec, x, labels, mask) -> None:
+    """cora GCN (1433 -> 16 -> 8) under a ``pp`` schedule trained through
+    the two-stream Parallel Pipeline: ``mesh=[cuda:0, cuda:0]`` (and
+    ``[cuda:0, cuda:1]`` with two cards) against ``mesh=None``, two SGD
+    steps each: the same loss, the parameters within 2e-4 (the CPU test's
+    checks), and the first step run again bit-identical."""
+    import repro_torch
+    from repro_torch.core.cost_model import GNNLayerWorkload
+    from repro_torch.core.schedule import ModelSchedule
+    from repro_torch.gnn import GNNConfig
+
+    cfg = GNNConfig("gcn", f_in=spec.n_features, hidden=16, n_classes=8)
+    wls = [GNNLayerWorkload(cora.nnz, fi, fo) for fi, fo in cfg.dims]
+    sched = ModelSchedule.from_policies("pp", "AC", cfg.dims)
+    prog = repro_torch.compile(wls, graph=cora, schedule=sched, device=dev)
+    params = prog.init(torch.Generator().manual_seed(0))
+    meshes = {"none": None, "two_streams": [dev, dev]}
+    if torch.cuda.device_count() >= 2:
+        meshes["two_cards"] = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    runs, walls = {}, {}
+    for name, mesh in meshes.items():
+        p, steps, ms = params, [], []
+        for _ in range(3):  # the first builds the executable
+            t0 = time.perf_counter()
+            loss, p = prog.train_step(p, x, labels, mask, lr=0.05, mesh=mesh)
+            sync(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            steps.append((loss, p))
+        runs[name], walls[name] = steps, ms
+    record = {"phase": "train", "model": "gcn cora pp", "dims": cfg.dims,
+              "layers": tiers(prog), "meshes": sorted(meshes),
+              "step_ms": walls, "losses": {k: [float(s[0]) for s in v] for k, v in runs.items()}}
+    for name in meshes:
+        if name == "none":
+            continue
+        again = prog.train_step(params, x, labels, mask, lr=0.05, mesh=meshes[name])
+        worst = 0.0
+        for (l_p, p_p), (l_n, p_n) in zip(runs[name], runs["none"]):
+            check(torch.equal(l_p, l_n), f"PP train {name}: loss {float(l_p)} != "
+                  f"mesh=None's {float(l_n)}")
+            for a, b in zip(p_p, p_n):
+                for k in a:
+                    torch.testing.assert_close(a[k], b[k], **TOL_PATH)
+                    worst = max(worst, float((a[k] - b[k]).abs().max()))
+        repeat = torch.equal(again[0], runs[name][0][0]) and all(
+            torch.equal(a[k], b[k]) for a, b in zip(again[1], runs[name][0][1]) for k in a)
+        record[f"{name}_max_abs_vs_none"] = worst
+        record[f"{name}_repeat_bit_identical"] = repeat
+        check(repeat, f"PP train {name}: the repeated step is not bit-identical")
+    emit(record | {"ok": True})
 
 
 def moe_train(dev, counters, batch=2, seq=512) -> None:
@@ -2732,10 +2806,312 @@ def sharded_multi_card(root: Path) -> None:
     check(half["exact"], f"checkpoint from {world} ranks restored on {world // 2} differs")
 
 
+# ---------------------------------------------------------------------------
+# The multi-pod dry-run (fake process groups, in subprocesses)
+# ---------------------------------------------------------------------------
+
+#: (a) the production cells: smollm-135m decode_32k on 16 x 16 and 2 x 16 x
+#: 16, granite-moe-1b-a400m train_4k on 16 x 16 (a fake group of 256 or 512
+#: ranks is the subprocess's default group)
+DRYRUN_PRODUCTION = """
+import json, time
+import torch.distributed as dist
+from repro_torch.launch.dryrun import run_cell
+for arch, shape, mp in (("smollm-135m", "decode_32k", False),
+                        ("granite-moe-1b-a400m", "train_4k", False),
+                        ("smollm-135m", "decode_32k", True)):
+    if mp and dist.is_initialized():
+        dist.destroy_process_group()  # one fake group at a time
+    t0 = time.perf_counter()
+    r = run_cell(arch, shape, mp, save=False)
+    r["wall_s"] = time.perf_counter() - t0
+    print(json.dumps(r), flush=True)
+"""
+
+#: (b) granite-moe-1b-a400m at the sharded phase's shape on fake meshes of
+#: the sizes the card run uses, (1, 1), or (1, 4) and (2, 2): the trainer's
+#: step (train 2 x 512) and, on (1, 1), the kernel-route prefill
+DRYRUN_HELD = """
+import json, time
+from repro_torch.configs import ShapeSuite, get_config
+from repro_torch.launch import train
+from repro_torch.launch.dryrun import cell_result, placed_batch, record
+from repro_torch.launch.hlo import analyze
+from repro_torch.launch.mesh import make_fake_mesh
+from repro_torch.launch.specs import abstract_params
+from repro_torch.models import forward, param_shardings, production_rules, use_sharding
+from repro_torch.models.sharding import distribute
+cfg, meshes, (batch, seq) = get_config(%r), %r, %r
+shapes = {"train": ShapeSuite("sharded_train", seq, batch, "train"),
+          "prefill": ShapeSuite("sharded_prefill", seq, batch, "prefill")}
+for shape in meshes:
+    mesh, rules = make_fake_mesh(shape), production_rules()
+    with use_sharding(mesh, rules):
+        pa = abstract_params(cfg)
+        params = distribute(pa, param_shardings(pa, mesh, rules))
+        init_opt, step = train.build_trainer(cfg, mesh, rules, lr=3e-4, total_steps=10)
+        opt = init_opt(params)
+        data = {k: placed_batch(cfg, s) for k, s in shapes.items()}
+    fns = {"train": (lambda p, o, b: step(p, o, None, b), (params, opt, data["train"]))}
+    if shape == (1, 1):
+        fns["prefill"] = (lambda p, b: forward(cfg, p, b["inputs"])[0],
+                          (params, data["prefill"]))
+    for kind, (fn, args) in fns.items():
+        t0 = time.perf_counter()
+        with use_sharding(mesh, rules):
+            stats = analyze(record(fn, args))
+        r = cell_result(cfg, shapes[kind], mesh, stats, time.perf_counter() - t0)
+        print(json.dumps(r), flush=True)
+"""
+
+
+def start_dryrun() -> dict:
+    """Both dry-run scripts in subprocesses of their own, started together:
+    a fake default group cannot share this process with NCCL.  They trace
+    on the CPU while the card runs the other phases."""
+    src = Path(__file__).resolve().parent / "src"
+    env = dict(os.environ, PYTHONPATH=str(src))
+    scripts = {"production": DRYRUN_PRODUCTION,
+               "held": DRYRUN_HELD % (SHARDED_ARCH, [(1, 1)], (2, 512))}
+    if torch.cuda.device_count() >= 4:  # the meshes of the four-card run
+        scripts["held4"] = DRYRUN_HELD % (SHARDED_ARCH, [(1, 4), (2, 2)], (2, 512))
+    procs = {name: subprocess.Popen([sys.executable, "-c", script], cwd=src.parent, env=env,
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for name, script in scripts.items()}
+    # a phase that fails before they are read leaves none running
+    atexit.register(lambda: [p.kill() for p in procs.values() if p.poll() is None])
+    return procs
+
+
+def dryrun_results(proc, what, timeout_s=900) -> list:
+    """The JSON lines a dry-run subprocess printed; fails the run when it
+    failed."""
+    try:
+        out, err = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    if proc.returncode != 0:
+        print(err[-6000:], file=sys.stderr, flush=True)
+    check(proc.returncode == 0, f"dryrun {what}: the trace failed (exit {proc.returncode})")
+    return [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+
+
+def dryrun_rank(model_parallel: int) -> dict:
+    """One rank of the four-card step (NCCL, this process's card): the
+    trainer's granite-moe step at 2 x 512 on a (4 / model_parallel,
+    model_parallel) mesh, once warm, then under ``CommDebugMode``: the
+    collectives it issued on this rank and its argument bytes."""
+    import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import LMDataPipeline
+    from repro_torch.launch import train
+    from repro_torch.launch.dryrun import local_bytes
+    from repro_torch.launch.hlo import comm_counts
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import init_params, param_shardings, production_rules
+    from repro_torch.models import shard, use_sharding
+    from repro_torch.models.sharding import distribute
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = get_config(SHARDED_ARCH)
+    mesh, rules = make_mesh_for(dist.get_world_size(), model_parallel), production_rules()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    sp = distribute(params, param_shardings(params, mesh, rules))
+    del params
+    init_opt, step = train.build_trainer(cfg, mesh, rules, lr=3e-4, total_steps=10)
+    opt = init_opt(sp)
+    batch = LMDataPipeline(cfg, 2, 512, seed=0, device=dev).peek(0)
+    with use_sharding(mesh, rules):
+        placed = {k: shard(v, "batch", None) for k, v in batch.items()}
+    step(sp, opt, None, batch)
+    torch.cuda.synchronize()
+    with CommDebugMode() as comm:
+        step(sp, opt, None, batch)
+    torch.cuda.synchronize()
+    return {"rank": dist.get_rank(), "comm": comm_counts(comm),
+            "argument_bytes": local_bytes((sp, opt, placed))}
+
+
+def dryrun_four_cards(procs) -> dict:
+    """The trainer's step on four cards, (1, 4) and (2, 2), one process a
+    card: rank 0's ``CommDebugMode`` count and argument bytes against the
+    trace on a fake group of four (``start_dryrun``'s ``held4``)."""
+    from repro_torch.launch.mesh import spawn
+
+    traced = {tuple(r["mesh_shape"].values()): r
+              for r in dryrun_results(procs["held4"], "four-card traces")}
+    out = {}
+    for shape in ((1, 4), (2, 2)):
+        t0 = time.perf_counter()
+        r0 = spawn(dryrun_rank, 4, shape[1], device_type="cuda", join_timeout_s=600,
+                   pg_timeout_s=300)[0]
+        t = traced[shape]
+        out["x".join(map(str, shape))] = {
+            "count_by_op": [t["collectives"]["count_by_op"], r0["comm"]],
+            "argument_bytes": [t["memory"]["argument_bytes"], r0["argument_bytes"]],
+            "link_bytes_by_op": t["collectives"]["link_bytes_by_op"],
+            "trace_s": t["lower_s"], "wall_s": time.perf_counter() - t0}
+    for name, c in out.items():
+        check(c["count_by_op"][0] == c["count_by_op"][1],
+              f"dryrun {name}: traced collectives {c['count_by_op'][0]} != rank 0's "
+              f"CommDebugMode count {c['count_by_op'][1]}")
+        check(c["argument_bytes"][0] == c["argument_bytes"][1],
+              f"dryrun {name}: traced argument bytes {c['argument_bytes'][0]} != rank "
+              f"0's {c['argument_bytes'][1]}")
+    return out
+
+
+def phase_dryrun(dev, counters, procs) -> dict:
+    """The port's multi-pod dry-run (``launch/dryrun.py``): its roofline
+    terms on the H100's spec constants, and the trace held against the
+    real step on this card.
+
+    (a) The production cells traced in a subprocess (``start_dryrun``):
+    the three terms, the dominant one and the trace seconds.  (b)
+    granite-moe-1b-a400m at the sharded phase's shape (published widths,
+    bf16, 2 x 512) traced on a fake (1, 1) mesh, against the same step run
+    on a (1, 1) NCCL mesh on this card: argument bytes (parameters,
+    optimizer state, batch) equal exactly; local FLOPs equal
+    ``FlopCounterMode`` on a warm step exactly (the prefill's flash calls
+    through the kernel's registered formula, flash launched once an
+    attention layer); read, not held: the predicted peak (argument +
+    temporary bytes) against ``max_memory_allocated`` of a warm step, and
+    the roofline bound against the warm step's wall (the step's share of
+    its bound on the H100).  The terms are predictions from spec
+    constants, not measurements."""
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.hw import H100_SXM
+    from repro_torch.data import LMDataPipeline
+    from repro_torch.launch import train
+    from repro_torch.launch.dryrun import local_bytes
+    from repro_torch.launch.mesh import init_process_group, make_mesh_for
+    from repro_torch.models import forward, init_params, param_shardings, production_rules
+    from repro_torch.models import use_sharding
+    from repro_torch.models.sharding import distribute
+
+    t_phase = time.perf_counter()
+    cfg, batch, seq = get_config(SHARDED_ARCH), 2, 512
+    # (b) the real steps on a (1, 1) NCCL mesh, while the traces finish
+    init_process_group("cuda")
+    mesh, rules = make_mesh_for(1, 1), production_rules()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    sp = distribute(params, param_shardings(params, mesh, rules))
+    del params
+    init_opt, step = train.build_trainer(cfg, mesh, rules, lr=3e-4, total_steps=10)
+    opt = init_opt(sp)
+    data = LMDataPipeline(cfg, batch, seq, seed=0, device=dev)
+    real = {"train": {"argument_bytes": local_bytes((sp, opt, data.peek(0)))},
+            "prefill": {"argument_bytes": local_bytes((sp, data.peek(0)["inputs"]))}}
+
+    def train_step(s):
+        return step(sp, opt, None, data.peek(s))[0]
+
+    with use_sharding(mesh, rules):
+        def prefill(s):
+            with torch.no_grad():
+                return forward(cfg, sp, data.peek(s)["inputs"])[0]
+
+        reset_counts(counters)
+        for kind, fn in (("train", train_step), ("prefill", prefill)):
+            fn(0)  # warm
+            sync(dev)
+            with FlopCounterMode(display=False) as fc:
+                fn(1)
+            sync(dev)
+            reset_counts(counters)
+            torch.cuda.reset_peak_memory_stats()
+            # the step's own peak: what it allocates on top of what this
+            # process holds (its arguments among it), plus its arguments
+            base = torch.cuda.memory_allocated()
+            timed = timed_steps(fn, 4)
+            real[kind].update(
+                flops=fc.get_total_flops(), wall_ms=timed["step_ms_median"],
+                flops_by_op={str(k): v for k, v in fc.get_flop_counts()["Global"].items()},
+                step_ms=timed["step_ms"],
+                peak_bytes=torch.cuda.max_memory_allocated() - base
+                + real[kind]["argument_bytes"],
+                launches={k: c.launches for k, c in counters.items()})
+    counts = real["prefill"]["launches"]
+    del sp, opt
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+
+    four = dryrun_four_cards(procs) if "held4" in procs else {
+        "ran": False, "reason": f"{torch.cuda.device_count()} CUDA device: the four-card "
+                                "comparison needs four; not run, not passed"}
+    cells = dryrun_results(procs["production"], "production cells")
+    held = {r["kind"]: r for r in dryrun_results(procs["held"], "(1, 1) traces")}
+    check(len(cells) == 3 and set(held) == {"train", "prefill"},
+          f"dryrun: {len(cells)} cells and {sorted(held)} traces came back")
+    rows = []
+    for r in cells:
+        rf = r["roofline"]
+        rows.append({"cell": f"{r['arch']} {r['shape']} {r['mesh']}", "n_chips": r["n_chips"],
+                     "grad_accum": r.get("grad_accum"), "trace_s": r["lower_s"],
+                     "wall_s": r["wall_s"],
+                     **{k: rf[k] for k in ("compute_term_s", "memory_term_s",
+                                           "collective_term_s", "dominant_term", "bound_s",
+                                           "roofline_fraction")},
+                     "flops_per_device": r["cost"]["flops_per_device"],
+                     "collective_count_by_op": r["collectives"]["count_by_op"],
+                     "link_bytes_by_op": r["collectives"]["link_bytes_by_op"],
+                     "argument_bytes": r["memory"]["argument_bytes"],
+                     "temp_bytes": r["memory"]["temp_bytes"]})
+        print(f"dryrun {rows[-1]['cell']}: compute {rf['compute_term_s']:.6g} s, memory "
+              f"{rf['memory_term_s']:.6g} s, collective {rf['collective_term_s']:.6g} s, "
+              f"bound by {rf['dominant_term']}; trace {r['lower_s']} s", flush=True)
+    compared = {}
+    for kind in ("train", "prefill"):
+        t, m = held[kind], real[kind]
+        predicted_peak = t["memory"]["argument_bytes"] + t["memory"]["temp_bytes"]
+        compared[kind] = {
+            "argument_bytes": [t["memory"]["argument_bytes"], m["argument_bytes"]],
+            "flops": [t["cost"]["flops_per_device"], m["flops"]],
+            "flops_by_op": [t["cost"]["flops_by_op"], m["flops_by_op"]],
+            "kernel_calls": t["kernel_calls"],
+            "predicted_peak_bytes": predicted_peak, "measured_peak_bytes": m["peak_bytes"],
+            "peak_predicted_over_measured": predicted_peak / m["peak_bytes"],
+            "bound_s": t["roofline"]["bound_s"], "dominant_term": t["roofline"]["dominant_term"],
+            "warm_wall_ms": m["wall_ms"], "step_ms": m["step_ms"],
+            "bound_share_of_wall": t["roofline"]["bound_s"] * 1e3 / m["wall_ms"],
+            "trace_s": t["lower_s"],
+        }
+    props = torch.cuda.get_device_properties(0)
+    emit({"phase": "dryrun", "cells": rows, "held_1x1": compared, "four_cards": four,
+          "chip_constants": {"name": H100_SXM.name, "peak_bf16_flops": H100_SXM.peak_bf16_flops,
+                             "hbm_bandwidth": H100_SXM.hbm_bandwidth,
+                             "nvlink_bandwidth": H100_SXM.nvlink_bandwidth,
+                             "network_bandwidth": H100_SXM.network_bandwidth,
+                             "gpus_per_node": H100_SXM.gpus_per_node,
+                             "hbm_capacity": H100_SXM.hbm_capacity},
+          "card_total_memory": props.total_memory, "card": card_line(),
+          "prefill_launches": counts, "phase_s": time.perf_counter() - t_phase})
+    for kind, c in compared.items():
+        check(c["argument_bytes"][0] == c["argument_bytes"][1],
+              f"dryrun {kind}: traced argument bytes {c['argument_bytes'][0]} != the real "
+              f"step's {c['argument_bytes'][1]}")
+        check(c["flops"][0] == c["flops"][1],
+              f"dryrun {kind}: traced FLOPs {c['flops'][0]} != FlopCounterMode's "
+              f"{c['flops'][1]}")
+    check(compared["prefill"]["kernel_calls"] == {"repro_torch.flash_attend": cfg.n_layers},
+          f"dryrun prefill trace: flash calls {compared['prefill']['kernel_calls']}")
+    check(counts["flash_attention"] == 4 * cfg.n_layers,
+          f"dryrun prefill: flash launched {counts['flash_attention']} times in 4 "
+          f"forwards of {cfg.n_layers} attention layers")
+    return counts
+
+
 def main() -> int:
     only = sys.argv[1:]
-    if only not in ([], ["--only", "train"], ["--only", "lm_families"], ["--only", "sharded"]):
-        print("usage: python3 chip_smoke.py [--only train|lm_families|sharded]",
+    if only not in ([], ["--only", "train"], ["--only", "lm_families"], ["--only", "sharded"],
+                    ["--only", "dryrun"]):
+        print("usage: python3 chip_smoke.py [--only train|lm_families|sharded|dryrun]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -2759,11 +3135,17 @@ def main() -> int:
     counters = {"spmm": spmm_ops.spmm, "fused_agg_cmb": fused_ops.fused_agg_cmb,
                 "flash_attention": flash_ops.flash_attention,
                 "gemm_dataflow": gemm_ops.gemm}
+    if only == ["--only", "dryrun"]:  # its traces, then the real steps
+        phase_dryrun(dev, counters, start_dryrun())
+        print(card_line(), flush=True)
+        return 0
     if only:  # one phase alone, in a process nothing else ran in
         {"train": phase_train, "lm_families": phase_lm_families,
          "sharded": phase_sharded}[only[1]](dev, counters)
         print(card_line(), flush=True)
         return 0
+    # the dry-run's traces run on the CPU in subprocesses beside the phases
+    dryrun_procs = start_dryrun()
     phase_build([spmm_ops.LIBRARY, fused_ops.LIBRARY, flash_ops.LIBRARY,
                  gemm_ops.LIBRARY])
 
@@ -2779,7 +3161,8 @@ def main() -> int:
     del held
     runs.append(phase_train(dev, counters))
     runs += [phase_gemm(dev, counters), phase_lm_serve(dev, counters),
-             phase_lm_families(dev, counters), phase_sharded(dev, counters)]
+             phase_lm_families(dev, counters), phase_sharded(dev, counters),
+             phase_dryrun(dev, counters, dryrun_procs)]
     for run in runs:
         for k, n in run.items():
             launches[k] += n

@@ -414,8 +414,12 @@ class Program:
         counted by :func:`trace_count`; :meth:`train_step` keeps it in the
         forward executables' shared cache once it has run."""
         _note_trace()
-        kind, specs = self.kind, self.specs
-        kernels = [lookup_kernel(s.policy, s.order, s.use_pallas) for s in specs]
+        # every layer trains on the eager path: the layers that reach a
+        # kernel were refused before, and the others (pp's two-group
+        # pipeline among them) train as the reference's do, without kernels
+        kind = self.kind
+        specs = [replace(s, use_pallas=False) for s in self.specs]
+        kernels = [lookup_kernel(s.policy, s.order, False) for s in specs]
 
         def exe(params, indices, weights, x, labels, mask):
             adj = EllAdjacency(indices, weights, n_nodes)
@@ -454,9 +458,10 @@ class Program:
         kernel (seq, sp_opt/AC) raises ``ValueError`` here before anything
         is built or launched; train ``Program.degraded(use_pallas=False)``.
         The other ``use_pallas`` layers run the eager path and train, as
-        in the reference.  A ``pp`` layer on a mesh of two CUDA devices or
-        streams raises ``NotImplementedError``: the two-stream pipeline is
-        not differentiated yet (ROADMAP Queue 1 item 6b, slice 10).
+        in the reference.  A ``pp`` layer on a mesh of two CUDA devices (or
+        two streams of one card, ``mesh=[cuda:0, cuda:0]``) trains through
+        the two-stream pipeline: autograd runs each band's backward on the
+        stream its forward ran on, and the step equals ``mesh=None``'s.
         """
         reached = sorted({
             f"{s.policy}/{s.order}" for s in self.specs
@@ -478,15 +483,6 @@ class Program:
             )
         if mesh is not None:
             mesh = tuple(mesh)
-            if any(s.policy == "pp" for s in self.specs) and len(mesh) >= 2:
-                from .gnn.pp import mesh_devices
-
-                if any(d.type == "cuda" for d in mesh_devices(mesh)[:2]):
-                    raise NotImplementedError(
-                        "train_step: the two-stream Parallel Pipeline on a "
-                        "CUDA mesh is not differentiated yet (ROADMAP Queue 1 "
-                        "item 6b, slice 10); train with mesh=None"
-                    )
         for i, layer in enumerate(params):
             for k, v in layer.items():
                 on_device(v, dev, f"params[{i}][{k!r}]")

@@ -1,7 +1,8 @@
 """Hardware abstraction for the spatial-accelerator model (paper Sec. 2.2).
 
-A copy of :mod:`repro.core.hw` without the TPU chip constants (the port's
-device constants arrive with its roofline analysis).  Carries
+A copy of :mod:`repro.core.hw` whose chip constants are the H100's
+(:class:`GPUChipConfig`, :data:`H100_SXM`, for the dry-run's roofline) in
+place of the reference's TPU v5e.  Carries
 :class:`HWGrid` — the broadcastable hardware axis the co-design search
 (:func:`repro.core.mapper.search_codesign`) and the batched simulator
 (:func:`repro.core.simulator.simulate_batch`) sweep — and
@@ -326,3 +327,22 @@ class HWGrid:
         case studies trade against dataflow choice)."""
         pts = self.points()
         return np.array([float(p) * float(b) for p, b, _ in pts], dtype=np.float64)
+
+
+#: NVIDIA H100 SXM constants for the roofline model (the counterpart of the
+#: reference's ``TPUChipConfig``).  These are NVIDIA's published spec values
+#: (dense rates, no sparsity, at the full 700 W power limit), not
+#: measurements: ``chip_smoke.py`` prints the card's own memory size, name
+#: and power limit beside them.
+@dataclass(frozen=True)
+class GPUChipConfig:
+    name: str = "h100-sxm"
+    peak_bf16_flops: float = 989.4e12  # FLOP/s per GPU, dense bf16
+    hbm_bandwidth: float = 3.35e12  # bytes/s
+    nvlink_bandwidth: float = 450e9  # bytes/s per direction per GPU
+    network_bandwidth: float = 50e9  # bytes/s per GPU (NDR InfiniBand, 400 Gb/s)
+    gpus_per_node: int = 8  # one NVLink domain
+    hbm_capacity: float = 80 * 2**30  # bytes
+
+
+H100_SXM = GPUChipConfig()

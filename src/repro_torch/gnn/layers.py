@@ -141,7 +141,9 @@ def _aggregate_band(indices, weights, x) -> torch.Tensor:
 
 class _AggregateBand(torch.autograd.Function):
     """:func:`aggregate_band` with a backward: ``dx[idx[v, d]] += w[v, d] *
-    g[v]`` and ``dw[v, d] = g[v] . x[idx[v, d]]``."""
+    g[v]`` and ``dw[v, d] = g[v] . x[idx[v, d]]``.  ``dx`` sums each row's
+    terms in slot order (a stable sort by row, then one segment sum a row),
+    with no atomics: a step repeated on the card gives the same bits."""
 
     @staticmethod
     def forward(ctx, indices, weights, x):
@@ -158,11 +160,11 @@ class _AggregateBand(torch.autograd.Function):
             rows = x.index_select(0, flat).reshape(b, d, -1).to(g.dtype)
             gw = (rows * g[:, None, :]).sum(-1).to(weights.dtype)
         if ctx.needs_input_grad[2]:
-            gx = torch.zeros(x.shape, dtype=g.dtype, device=g.device)
-            gx.index_add_(
-                0, flat,
-                (weights.to(g.dtype)[:, :, None] * g[:, None, :]).reshape(b * d, -1),
-            )
+            terms = (weights.to(g.dtype)[:, :, None] * g[:, None, :]).reshape(b * d, -1)
+            order = torch.argsort(flat, stable=True)
+            rows = torch.zeros(x.shape[0], dtype=torch.int64, device=flat.device)
+            rows.scatter_add_(0, flat, torch.ones_like(flat))
+            gx = torch.segment_reduce(terms[order], "sum", lengths=rows, axis=0)
             gx = gx.to(x.dtype)
         return None, gw, gx
 

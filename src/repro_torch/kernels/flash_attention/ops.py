@@ -25,6 +25,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from torch.utils.flop_counter import register_flop_formula
+
 from ..common import DTYPE_CODES, CudaLibrary, refuse_grad
 from .ref import attend_chunked, flash_attention_ref
 
@@ -35,6 +37,8 @@ LIBRARY = CudaLibrary(
         [_P] * 6 + [_I] * 8 + [ctypes.c_float] + [_L] * 12 + [_I, _I, _P]},
 )
 ROUTES = ("cuda_cores", "tensor_cores")
+#: the kernel's tile: 64 queries by 64 keys (both routes)
+TILE = 64
 #: the widest head the kernel takes (recurrentgemma-2b's local blocks: 256)
 MAX_HEAD_DIM = 256
 
@@ -147,16 +151,60 @@ def attend(q, k, v, q_pos, k_pos, window: int = 0, chunk: int = 512):
     """Causal attention in the model's layout: q (B, Sq, Hq, D), k/v
     (B, Sk, Hkv, D); key ``j`` is seen by query ``i`` when
     ``k_pos[j] <= q_pos[i]`` (and ``k_pos[j] > q_pos[i] - window`` when
-    ``window``).  Returns (B, Sq, Hq, D)."""
+    ``window``).  Returns (B, Sq, Hq, D).
+
+    A CUDA tensor launches the kernel through the custom op
+    ``repro_torch::flash_attend``; a ``meta`` (or fake) tensor goes to the
+    same op, whose fake implementation gives the output's shape and
+    computes nothing (the dry-run's traces, ``launch/dryrun.py``), and
+    whose registered FLOP formula (:func:`attend_flops`) counts the tiles
+    the kernel computes."""
     _check("attend", q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
     refuse_grad("attend", q, k, v)
     if q.device.type == "cpu":
         return attend_chunked(q, k, v, q_pos, k_pos, window, chunk)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"attend: no kernel for device {q.device}")
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     qp = _positions(q_pos, q.shape[1], q.device, "q_pos")
     kp = _positions(k_pos, k.shape[1], q.device, "k_pos")
+    return flash_attend(q, k, v, qp, kp, int(window))
+
+
+@torch.library.custom_op("repro_torch::flash_attend", mutates_args=(), device_types="cuda")
+def flash_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 q_pos: torch.Tensor, k_pos: torch.Tensor, window: int) -> torch.Tensor:
+    """The kernel on the model's layout (see :func:`attend`, which checks
+    the operands first)."""
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            out.transpose(1, 2), qp, kp, True, window)
+            out.transpose(1, 2), q_pos, k_pos, True, window)
     return out
+
+
+@flash_attend.register_fake
+def _(q, k, v, q_pos, k_pos, window):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+def attend_flops(q_shape, k_shape, window: int) -> int:
+    """FLOPs of the tiles the kernel computes for :func:`attend` on the
+    model's positions (``q_pos = 0 .. Sq - 1``, ``k_pos = 0 .. Sk - 1``,
+    as every caller passes them): a 64-query by 64-key tile is computed
+    unless the causal mask (or the window) hides every pair of it, and a
+    computed tile costs ``QK^T`` and ``PV``, 2 x 2 x 64 x 64 x D FLOPs.
+    Partly masked tiles count whole, as the kernel computes them whole."""
+    b, sq, hq, d = q_shape
+    sk = k_shape[1]
+    q0 = np.arange(0, sq, TILE)[:, None]
+    k0 = np.arange(0, sk, TILE)[None, :]
+    seen = k0 <= np.minimum(q0 + TILE, sq) - 1
+    if window > 0:
+        seen &= np.minimum(k0 + TILE, sk) - 1 > q0 - window
+    tiles = int(seen.sum())
+    return 4 * TILE * TILE * d * tiles * b * hq
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attend)
+def _flash_attend_flop(q_shape, k_shape, v_shape, q_pos_shape, k_pos_shape, window,
+                       *args, out_shape=None, **kwargs) -> int:
+    return attend_flops(q_shape, k_shape, window)

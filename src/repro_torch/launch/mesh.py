@@ -13,10 +13,11 @@ names, over every rank of the group.
 Without torchrun, :func:`spawn` starts one process per device itself
 (``file://`` rendezvous in a temporary directory, a join timeout).
 
-The reference's ``make_production_mesh`` (its 16 x 16 and 2 x 16 x 16
-meshes on placeholder devices, for the multi-pod dry-run) has no
-counterpart yet: it comes with the dry-run (ROADMAP Queue 1 item 6b,
-slice 10).
+:func:`make_production_mesh` is the reference's 16 x 16 and 2 x 16 x 16
+production meshes for the multi-pod dry-run (``launch/dryrun.py``): where
+the reference puts 512 placeholder CPU devices under one controller, this
+process becomes rank 0 of a ``fake`` process group of 256 or 512 ranks,
+whose collectives move nothing.
 """
 from __future__ import annotations
 
@@ -65,6 +66,50 @@ def init_process_group(device_type: str = "cuda", *, init_method: str | None = N
                    if v is not None})
     dist.init_process_group(backend, **kw)
     return dist.get_rank(), dist.get_world_size()
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The ``("data", "model")`` 16 x 16 mesh, or the ``("pod", "data",
+    "model")`` 2 x 16 x 16 mesh with ``multi_pod``, on a ``fake`` default
+    process group of 256 or 512 ranks in which this process is rank 0
+    (made here when there is none).  The mesh's device type is ``"cuda"``,
+    so DTensor picks the collectives it would pick under NCCL (on a
+    ``"cpu"`` mesh an all-to-all becomes an all-gather and a chunk); no
+    card is needed, since a dry-run's tensors are on the ``meta`` device.
+
+    Raises when another default group exists: a real group (this process
+    holding the card's NCCL group, say) or a fake one of another size.  A
+    fake group cannot share a process with a real one, so the caller that
+    also runs on the card runs the dry-run in a process of its own."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_fake_mesh(shape, axes)
+
+
+def make_fake_mesh(shape: tuple, axes: tuple = AXES, device_type: str = "cuda"):
+    """A mesh of ``shape`` (dims named ``axes``) on a ``fake`` default
+    process group of as many ranks, this process rank 0, made here when
+    there is none; raises when another default group exists (see
+    :func:`make_production_mesh`).  The dry-run's production meshes, and
+    the small meshes that hold a dry-run against a real run of the same
+    size (``chip_smoke.py``, the CPU tests)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    world = 1
+    for n in shape:
+        world *= n
+    if dist.is_initialized():
+        backend, size = dist.get_backend(), dist.get_world_size()
+        if backend != "fake" or size != world:
+            raise RuntimeError(
+                f"a default process group already exists ({backend}, {size} "
+                f"ranks); a fake mesh of {world} ranks needs a process of its own")
+    else:
+        # internal API of PyTorch's own tests, imported in this one place
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+
+        dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+    return init_device_mesh(device_type, tuple(shape), mesh_dim_names=tuple(axes))
 
 
 def make_mesh_for(devices: int, model_parallel: int = 1, device_type: str = "cuda"):

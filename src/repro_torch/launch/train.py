@@ -82,7 +82,10 @@ def build_trainer(cfg, mesh=None, rules=None, lr=3e-4, total_steps=10_000,
             loss = lm_loss(cfg, p, batch)
             if mesh is not None:
                 loss = loss.full_tensor()
-            grads = torch.autograd.grad(loss, leaves(p))
+            # a leaf the loss does not use (olmo-1b's non-parametric
+            # norms) gets a zero gradient, as jax.grad gives it
+            grads = torch.autograd.grad(loss, leaves(p), allow_unused=True,
+                                        materialize_grads=True)
         if mesh is not None:  # the data-parallel reduction
             grads = [g.redistribute(w.device_mesh, w.placements)
                      for g, w in zip(grads, leaves(p))]

@@ -140,9 +140,16 @@ def _project_qkv(cfg: ArchConfig, p: dict, x: torch.Tensor, positions):
     hq = hkv * g_new
     heads = _heads_axis(cfg)
     wq, wk, wv, _ = _align_weights(cfg, p)
-    q = shard((x @ wq).reshape(b, s, hq, hd), "batch", None, heads, None)
-    k = shard((x @ wk).reshape(b, s, hkv, hd), "batch", None, heads, None)
-    v = shard((x @ wv).reshape(b, s, hkv, hd), "batch", None, heads, None)
+
+    def heads_of(w, n):
+        # the projection takes the heads' placement before the view: where
+        # the heads are not sharded (alignment refused) a column-sharded
+        # product cannot be viewed as (heads, head_dim), so it is gathered
+        # over the model axis first, as GSPMD reshards there
+        return shard(shard(x @ w, "batch", None, heads).reshape(b, s, n, hd),
+                     "batch", None, heads, None)
+
+    q, k, v = heads_of(wq, hq), heads_of(wk, hkv), heads_of(wv, hkv)
     return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
 
 

@@ -88,7 +88,11 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     does."""
     d = x.shape[-1]
     half = d // 2
-    ang = positions[..., None].float() * _rope_freqs(d, theta, x.device)  # (..., S, half)
+    # a meta tensor (the dry-run's traces) is free to make, and a cached one
+    # would carry one trace's fake tensors into the next
+    freqs = (_rope_freqs.__wrapped__ if x.device.type == "meta" else _rope_freqs)(
+        d, theta, x.device)
+    ang = positions[..., None].float() * freqs  # (..., S, half)
     sin = torch.sin(ang)[..., None, :]  # broadcast over heads
     cos = torch.cos(ang)[..., None, :]
     x1, x2 = x[..., :half].float(), x[..., half:].float()

@@ -58,6 +58,15 @@ def init_moe(cfg: ArchConfig, generator: torch.Generator, device=None) -> dict:
     }
 
 
+def _counts(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """``torch.bincount(ids, minlength=n)`` for ids in ``[0, n)``, as a
+    ``scatter_add_`` of ones: the same int64 counts, and an op that the
+    ``meta`` device (the dry-run's traces) has a kernel for."""
+    flat = ids.reshape(-1)
+    return torch.zeros(n, dtype=torch.int64, device=ids.device).scatter_add_(
+        0, flat, torch.ones_like(flat, dtype=torch.int64))
+
+
 def _route(cfg: ArchConfig, p: dict, x2d: torch.Tensor):
     """Router: returns (probs (T,k), ids (T,k), aux_loss).  ``torch.topk``
     on the float32 gates, as ``lax.top_k``."""
@@ -68,7 +77,7 @@ def _route(cfg: ArchConfig, p: dict, x2d: torch.Tensor):
     # Switch-style load-balance auxiliary loss
     e = cfg.moe.n_experts
     me = gates.mean(dim=0)  # mean router prob per expert
-    ce = torch.bincount(ids.reshape(-1), minlength=e).float() / ids.numel()
+    ce = _counts(ids, e).float() / ids.numel()
     aux = e * torch.sum(me * ce) * cfg.moe.router_aux_weight
     return probs, ids, aux
 
@@ -144,7 +153,7 @@ def _ep_local(cfg: ArchConfig, x_loc, router, w_gate, w_up, w_down, lo: int):
     # position within each local expert (stable order)
     order = torch.argsort(torch.where(mine, local_e, e_loc + 1), stable=True)
     sorted_e = local_e[order]
-    counts = torch.bincount(sorted_e, minlength=e_loc + 1)
+    counts = _counts(sorted_e, e_loc + 1)
     start = torch.cumsum(counts, 0) - counts  # first sorted slot of each expert
     pos_in_e = torch.arange(t * k, device=x2d.device) - start[sorted_e]
     keep = (sorted_e < e_loc) & (pos_in_e < cap)

@@ -86,7 +86,9 @@ def use_sharding(mesh, rules: ShardingRules | None):
     prev = (current_mesh(), current_rules())
     _STATE.mesh, _STATE.rules = mesh, rules
     try:
-        if mesh is None:
+        # inside another mesh it is on already, and leaving a nested
+        # implicit_replication would turn it off for the outer one
+        if mesh is None or prev[0] is not None:
             yield
         else:
             from torch.distributed.tensor.experimental import implicit_replication

@@ -752,6 +752,59 @@ def test_train_step_on_the_card_matches_the_cpu(dev, policy, order):
             torch.testing.assert_close(a[k].cpu(), b[k], rtol=2e-4, atol=2e-4)
 
 
+def _pp_train_steps(dev, mesh):
+    """Two SGD steps of a GCN under a ``pp`` schedule on ``dev`` (the
+    ring's 300 nodes in 10 bands of 32 a layer): with ``mesh`` and with
+    ``mesh=None``, and the first step once more from the same state."""
+    from repro_torch.core.cost_model import GNNLayerWorkload
+    from repro_torch.core.schedule import ModelSchedule
+    from repro_torch.gnn import make_node_classification_task
+
+    g, dims = _ring(300), [(24, 16), (16, 4)]
+    wls = [GNNLayerWorkload(g.nnz, fi, fo) for fi, fo in dims]
+    sched = ModelSchedule.from_policies("pp", "AC", dims, band_size=32)
+    prog = repro_torch.compile(wls, graph=g, schedule=sched, device=dev)
+    params = prog.init(torch.Generator().manual_seed(0))
+    task = make_node_classification_task(g, 24, 4, device=dev)
+    runs = {}
+    for m in (None, mesh):
+        loss, new = prog.train_step(params, *task, mesh=m)
+        loss2, new2 = prog.train_step(new, *task, mesh=m)
+        runs[m is None] = (loss, new, loss2, new2)
+    again = prog.train_step(params, *task, mesh=mesh)
+    return runs[True], runs[False], again
+
+
+def _held_pp_training(plain, piped, again):
+    """The pipelined steps against ``mesh=None``'s: the same loss, the
+    parameters within 2e-4; the repeated step bit-identical."""
+    for i in (0, 2):
+        assert torch.equal(piped[i], plain[i]), (i, float(piped[i]), float(plain[i]))
+    for a, b in zip(piped[1] + piped[3], plain[1] + plain[3]):
+        for k in a:
+            torch.testing.assert_close(a[k], b[k], rtol=2e-4, atol=2e-4)
+    assert torch.equal(again[0], piped[0])
+    for a, b in zip(again[1], piped[1]):
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+
+
+def test_pp_training_on_two_streams_of_one_card(dev):
+    """``train_step`` through the two-stream Parallel Pipeline on one card
+    (``mesh=[cuda:0, cuda:0]``): autograd runs each band's backward on the
+    stream its forward ran on."""
+    _held_pp_training(*_pp_train_steps(dev, [dev, dev]))
+
+
+def test_pp_training_on_two_cards(dev):
+    """The same on two cards: the producer on card 0, the consumer on card
+    1, each band handed over by a peer copy (and its gradient back)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    _held_pp_training(*_pp_train_steps(cards[0], cards))
+
+
 def test_lm_training_resumes_bitwise_on_the_card(dev, tmp_path):
     """3 AdamW steps + save + restore + 3 steps == 6 straight steps, bit
     for bit, on the card (bf16 parameters, f32 optimizer state)."""

@@ -26,7 +26,8 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "repro_torch.checkpoint, repro_torch.models.moe, repro_torch.models.rglru, "
         "repro_torch.models.xlstm, repro_torch.launch.analytic, "
         "repro_torch.models.sharding, repro_torch.launch.mesh, "
-        "repro_torch.launch.specs\n"
+        "repro_torch.launch.specs, repro_torch.launch.dryrun, "
+        "repro_torch.launch.hlo, repro_torch.launch.roofline\n"
         "import repro_torch.configs.gcn_paper\n"
         "from repro_torch.configs import all_configs\n"
         "all_configs()\n"

@@ -145,13 +145,21 @@ def test_train_step_on_a_host_mesh_matches_no_mesh(graphs):
             torch.testing.assert_close(b[k], a[k], **TOL)
 
 
-def test_train_step_on_a_cuda_mesh_is_refused(graphs):
-    _, port, _, params = _pair(graphs, "gcn", "pp", "AC")
+def test_kernel_tier_pp_on_a_host_mesh_trains_on_the_eager_path(graphs):
+    """A ``use_pallas`` PP layer reaches the kernels only through its
+    two-group pipeline; training runs that pipeline on the eager path (as
+    the reference's PP, which has no kernel, trains) and launches nothing."""
+    _, port, _, params = _pair(graphs, "gcn", "pp", "AC", use_pallas=True)
     _, (x, l, m) = _task(graphs)
-    builds = repro_torch.trace_count()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6b"):
-        port.train_step(params, x, l, m, mesh=["cuda:0", "cuda:0"])
-    assert repro_torch.trace_count() == builds
+    for k in KERNELS:
+        k.launches = 0
+    loss_a, new_a = port.degraded(use_pallas=False).train_step(params, x, l, m)
+    loss_b, new_b = port.train_step(params, x, l, m, mesh=["cpu", "cpu"])
+    assert all(k.launches == 0 for k in KERNELS)
+    assert torch.equal(loss_a, loss_b)
+    for a, b in zip(new_a, new_b):
+        for k in a:
+            torch.testing.assert_close(b[k], a[k], **TOL)
 
 
 @pytest.mark.parametrize("policy,order", [("sp_opt", "AC"), ("seq", "CA"), ("seq", "AC")])

@@ -327,3 +327,24 @@ class TestLaunchTrain:
     def test_compressed_main_runs(self, tmp_path, capsys):
         assert _main("--steps", "3", "--grad-compression", "int8") == 0
         assert "steps=3" in capsys.readouterr().out
+
+
+def test_trainer_steps_an_arch_with_an_unused_leaf():
+    """olmo-1b's non-parametric norms keep a scale leaf the loss never
+    reads: its gradient is zero (as ``jax.grad`` gives it), and the step's
+    loss and used gradients are the reference's."""
+    cfg = get_config("olmo-1b").reduced()
+    ref_cfg = ref_get_config("olmo-1b").reduced()
+    tree = jax.tree_util.tree_map(np.asarray, ref_init_params(ref_cfg, jax.random.PRNGKey(0)))
+    rng = np.random.default_rng(0)
+    batch = {k: rng.integers(0, cfg.vocab, (2, 8)).astype(np.int32) for k in ("inputs", "labels")}
+    ref_loss, ref_grads = jax.value_and_grad(lambda p: ref_lm_loss(ref_cfg, p, batch))(
+        jax.tree_util.tree_map(jnp.asarray, tree))
+    init_opt, step_fn = train.build_trainer(cfg, lr=1e-3, total_steps=10)
+    params = params_from_numpy(tree, "cpu")
+    loss, new, _, _ = step_fn(params, init_opt(params), None,
+                              {k: torch.as_tensor(v) for k, v in batch.items()})
+    np.testing.assert_allclose(float(loss), float(ref_loss), rtol=2e-4)
+    assert all(torch.isfinite(t).all() for t in leaves(new))
+    zero = [np.asarray(g) for g in jax.tree_util.tree_leaves(ref_grads) if not np.any(g)]
+    assert zero, "the reduced olmo-1b config has no unused leaf"
