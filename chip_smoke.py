@@ -2830,20 +2830,23 @@ for arch, shape, mp in (("smollm-135m", "decode_32k", False),
 
 #: (b) granite-moe-1b-a400m at the sharded phase's shape on fake meshes of
 #: the sizes the card run uses, (1, 1), or (1, 4) and (2, 2): the trainer's
-#: step (train 2 x 512) and, on (1, 1), the kernel-route prefill
+#: step (train 2 x 512) and, on (1, 1), the kernel-route prefill; (c) on
+#: (1, 1) and (1, 4) the decode step at the last slot of a 516-slot cache
+#: placed by ``cache_shardings``
 DRYRUN_HELD = """
 import json, time
 from repro_torch.configs import ShapeSuite, get_config
 from repro_torch.launch import train
-from repro_torch.launch.dryrun import cell_result, placed_batch, record
+from repro_torch.launch.dryrun import cell_result, placed_batch, record, step_stats
 from repro_torch.launch.hlo import analyze
 from repro_torch.launch.mesh import make_fake_mesh
 from repro_torch.launch.specs import abstract_params
 from repro_torch.models import forward, param_shardings, production_rules, use_sharding
 from repro_torch.models.sharding import distribute
-cfg, meshes, (batch, seq) = get_config(%r), %r, %r
+cfg, meshes, (batch, seq), decode_len = get_config(%r), %r, %r, %r
 shapes = {"train": ShapeSuite("sharded_train", seq, batch, "train"),
           "prefill": ShapeSuite("sharded_prefill", seq, batch, "prefill")}
+decode = ShapeSuite("sharded_decode", decode_len, batch, "decode")
 for shape in meshes:
     mesh, rules = make_fake_mesh(shape), production_rules()
     with use_sharding(mesh, rules):
@@ -2862,6 +2865,32 @@ for shape in meshes:
             stats = analyze(record(fn, args))
         r = cell_result(cfg, shapes[kind], mesh, stats, time.perf_counter() - t0)
         print(json.dumps(r), flush=True)
+    if shape[0] == 1:  # (c): the decode step on the cache cache_shardings places
+        t0 = time.perf_counter()
+        with use_sharding(mesh, rules):
+            stats, _ = step_stats(cfg, decode, mesh, rules)
+        print(json.dumps(cell_result(cfg, decode, mesh, stats, time.perf_counter() - t0)),
+              flush=True)
+"""
+
+#: (d) xlstm-1.3b's prefill at 2 x 512 on a fake (1, 1) mesh, its time loops
+#: (the mLSTM's chunks, the sLSTM's positions) scaled, then unrolled
+DRYRUN_LOOPS = """
+import json, time
+from repro_torch.configs import ShapeSuite, get_config
+from repro_torch.launch.dryrun import cell_result, step_stats
+from repro_torch.launch.mesh import make_fake_mesh
+from repro_torch.models import production_rules, use_sharding
+cfg, (batch, seq) = get_config(%r), %r
+shape = ShapeSuite("loops_prefill", seq, batch, "prefill")
+mesh, rules = make_fake_mesh((1, 1)), production_rules()
+for unrolled in (False, True):
+    t0 = time.perf_counter()
+    with use_sharding(mesh, rules):
+        stats, _ = step_stats(cfg, shape, mesh, rules, unrolled=unrolled)
+    r = cell_result(cfg, shape, mesh, stats, time.perf_counter() - t0)
+    r["unrolled"] = unrolled
+    print(json.dumps(r), flush=True)
 """
 
 
@@ -2871,10 +2900,13 @@ def start_dryrun() -> dict:
     on the CPU while the card runs the other phases."""
     src = Path(__file__).resolve().parent / "src"
     env = dict(os.environ, PYTHONPATH=str(src))
+    decode_len = DECODE_PROMPT + DECODE_STEPS
     scripts = {"production": DRYRUN_PRODUCTION,
-               "held": DRYRUN_HELD % (SHARDED_ARCH, [(1, 1)], (2, 512))}
+               "held": DRYRUN_HELD % (SHARDED_ARCH, [(1, 1)], (2, 512), decode_len),
+               "loops": DRYRUN_LOOPS % (LOOPS_ARCH, (2, LOOPS_PROMPT))}
     if torch.cuda.device_count() >= 4:  # the meshes of the four-card run
-        scripts["held4"] = DRYRUN_HELD % (SHARDED_ARCH, [(1, 4), (2, 2)], (2, 512))
+        scripts["held4"] = DRYRUN_HELD % (SHARDED_ARCH, [(1, 4), (2, 2)], (2, 512),
+                                          decode_len)
     procs = {name: subprocess.Popen([sys.executable, "-c", script], cwd=src.parent, env=env,
                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for name, script in scripts.items()}
@@ -2935,20 +2967,346 @@ def dryrun_rank(model_parallel: int) -> dict:
             "argument_bytes": local_bytes((sp, opt, placed))}
 
 
+#: (c) the decode on the cache ``cache_shardings`` places: a prompt
+#: prefilled unsharded, then the steps decoded against the placed cache
+DECODE_PROMPT, DECODE_STEPS = 512, 4
+#: (d) the time-loop scaling held against a real prefill: xlstm-1.3b at 2 x
+#: this many positions
+LOOPS_ARCH, LOOPS_PROMPT = "xlstm-1.3b", 512
+
+
+def prefilled_cache(cfg, params, tokens, length: int):
+    """The decode cache after the prompt ``tokens`` (B, P), from one
+    ``forward``: each attention layer's keys and values at positions 0..P-1
+    (after rope, as ``decode_attention`` writes them) copied into slots
+    0..P-1 of a ``length``-slot cache (no mesh: granite-moe's 8 KV heads
+    need no alignment on the meshes here).  The same cache as replaying
+    the prompt through ``decode_step``, up to the two paths' sum orders, at
+    one forward's cost (the replay is P host-bound steps)."""
+    from repro_torch.models import attention as attention_mod
+    from repro_torch.models import forward, init_cache
+
+    check(set(cfg.layer_kinds) <= {"attn", "moe"}, "prefilled_cache: full attention only")
+    project, kv = attention_mod._project_qkv, []
+
+    def keep(*args, **kwargs):
+        q, k, v = project(*args, **kwargs)
+        kv.append((k, v))
+        return q, k, v
+
+    attention_mod._project_qkv = keep
+    try:
+        with torch.no_grad():
+            forward(cfg, params, tokens)
+    finally:
+        attention_mod._project_qkv = project
+    cache = init_cache(cfg, tokens.shape[0], length, tokens.device, place=False)
+    pat, p = cfg.block_pattern, tokens.shape[1]
+    for layer, (k, v) in enumerate(kv):  # layer i * len(pat) + pos is scanned[pos][i]
+        state = cache["scanned"][layer % len(pat)]
+        state.k[layer // len(pat), :, :p] = k
+        state.v[layer // len(pat), :, :p] = v
+    return cache
+
+
+def decode_on_mesh(model_parallel: int) -> dict:
+    """(c) on this process's card and group: granite-moe-1b-a400m at
+    published width, batch 2, a ``DECODE_PROMPT``-token prompt prefilled
+    unsharded (bf16, :func:`prefilled_cache`), then ``DECODE_STEPS`` decode
+    steps against the cache
+    placed by ``cache_shardings`` on a (world / model_parallel,
+    model_parallel) mesh (the KV sequence over the model axis), in float32
+    and in bf16, each against the same steps decoded unsharded.  Returns
+    the logits' errors, this rank's cache bytes beside ``cache_shardings``'
+    local shard, the last step's ``CommDebugMode`` counts and the warm
+    steps' times; and the same steps on the cache as the serving path
+    places it (``place_cache``: KV heads over the model axis), their
+    times and f32 logits' error."""
+    import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import local_bytes
+    from repro_torch.launch.hlo import comm_counts
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.launch.specs import cache_shardings, local_bytes_of
+    from repro_torch.models import decode_step, init_params, param_shardings
+    from repro_torch.models import production_rules, use_sharding
+    from repro_torch.models.layers import torch_dtype
+    from repro_torch.models.sharding import distribute
+    from repro_torch.models.transformer import place_cache
+    from repro_torch.tree import tree_map
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = get_config(SHARDED_ARCH)
+    mesh, rules = make_mesh_for(dist.get_world_size(), model_parallel), production_rules()
+    b, n = 2, DECODE_PROMPT + DECODE_STEPS
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(cfg, g, dev)
+    tokens = torch.randint(0, cfg.vocab, (b, n), generator=g, device=dev)
+    t0 = time.perf_counter()
+    cache = prefilled_cache(cfg, params, tokens[:, :DECODE_PROMPT], n)
+    sync(dev)
+    out = {"rank": dist.get_rank(), "prefill_s": time.perf_counter() - t0}
+    for dtype in ("float32", "bfloat16"):
+        c = cfg.with_(dtype=dtype)
+
+        def cast(t, dt=torch_dtype(c)):
+            return t.to(dt)
+
+        p, base = tree_map(cast, params), tree_map(cast, cache)
+
+        def unsharded(routes, replay=None):
+            steps, want_cache = [], tree_map(torch.clone, base)
+            with torch.no_grad(), moe_routes(routes, replay):
+                for i in range(DECODE_PROMPT, n):
+                    steps.append(decode_step(c, p, want_cache, tokens[:, i:i + 1], i)[0])
+            return steps
+
+        free_routes, sharded_routes = [], []
+        want = unsharded(free_routes)
+        placement = cache_shardings(c, base, mesh, rules)
+        got, times = [], []
+        with torch.no_grad(), use_sharding(mesh, rules), moe_routes(sharded_routes):
+            sp = distribute(p, param_shardings(p, mesh, rules))
+            sc = distribute(tree_map(torch.clone, base), placement)
+            for i in range(DECODE_PROMPT, n):
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                if i == n - 1:
+                    with CommDebugMode() as comm:
+                        logits, sc = decode_step(c, sp, sc, tokens[:, i:i + 1], i)
+                else:
+                    logits, sc = decode_step(c, sp, sc, tokens[:, i:i + 1], i)
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+                got.append(logits.full_tensor())
+            # the serving path's placement of the same cache, the same steps
+            hc, head, head_times = place_cache(c, tree_map(torch.clone, base)), [], []
+            for i in range(DECODE_PROMPT, n):
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                logits, hc = decode_step(c, sp, hc, tokens[:, i:i + 1], i)
+                end.record()
+                end.synchronize()
+                head_times.append(start.elapsed_time(end))
+                head.append(logits.full_tensor())
+        # the unsharded decode again on the sharded run's expert choices:
+        # where bf16 roundings flip a top-8 choice, the two sides route a
+        # token apart, which says nothing of the cache's placement
+        same = unsharded([], sharded_routes)
+        out[dtype] = {"max_abs": max(float((a.float() - w.float()).abs().max())
+                                     for a, w in zip(got, want)),
+                      "rel_l2": max(rel_l2(a, w) for a, w in zip(got, want)),
+                      "rel_l2_same_routes": max(rel_l2(a, w) for a, w in zip(got, same)),
+                      "route_flips": route_flips(sharded_routes, free_routes)["choices_changed"],
+                      "step_ms": times,
+                      # the steps after the first, before the one counted
+                      "warm_step_ms": statistics.median(times[1:-1]),
+                      "head_placed": {"step_ms": head_times,
+                                      "warm_step_ms": statistics.median(head_times[1:]),
+                                      "max_abs": max(float((a.float() - w.float()).abs().max())
+                                                     for a, w in zip(head, want))},
+                      "cache_bytes": [local_bytes(sc), local_bytes_of(base, placement)],
+                      "comm": comm_counts(comm)}
+        del p, base, sp, sc, hc, got, head, want, same
+        torch.cuda.empty_cache()
+    return out
+
+
+#: (e) the RG-LRU gate products' placement: recurrentgemma-2b at published
+#: width, its depth cut to one (rglru, rglru, local) superblock, the
+#: trainer's step at this batch and length on (1, 4) (batch 4: at batch 2
+#: the unpinned products' backward fails on a mesh, as
+#: ``tests/test_torch_rglru_mesh.py`` pins)
+GATES_ARCH, GATES_LAYERS, GATES_SHAPE, GATES_STEPS = "recurrentgemma-2b", 3, (4, 512), 5
+
+
+def gates_unpinned(p: dict, u: torch.Tensor):
+    """``rglru._gates`` with its products left where DTensor's matmul
+    rule puts them (the port's version before the products were reduced
+    onto u's channel placement)."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import rglru
+
+    uf = u.float()
+    r_t = torch.sigmoid(uf @ p["w_a"].float() + p["b_a"].float())
+    i_t = torch.sigmoid(uf @ p["w_x"].float() + p["b_x"].float())
+    a_t = torch.exp(-rglru._C * r_t * F.softplus(-p["lam"].float()))
+    return a_t, torch.sqrt(torch.clamp_min(1.0 - a_t**2, 1e-12)) * (i_t * uf)
+
+
+def gates_rank() -> dict:
+    """(e) on this process's card of a (1, 4) mesh: the trainer's step of
+    ``GATES_ARCH`` (``GATES_LAYERS`` layers, bf16) at ``GATES_SHAPE``,
+    with ``rglru._gates`` as shipped and as :func:`gates_unpinned`, in the
+    order shipped, unpinned, unpinned, shipped; each run one warm step,
+    then ``GATES_STEPS`` timed by CUDA events, and its collectives under
+    ``CommDebugMode`` on one more, by the op DTensor called (on NCCL a
+    redistribution may call ``_dtensor.shard_dim_alltoall``, which DTensor
+    replaces by an all-gather and a chunk on a CPU group)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import LMDataPipeline
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import init_params, param_shardings, production_rules, rglru
+    from repro_torch.models.sharding import distribute
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = get_config(GATES_ARCH).with_(n_layers=GATES_LAYERS)
+    mesh, rules = make_mesh_for(dist.get_world_size(), 4), production_rules()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    batch = LMDataPipeline(cfg, *GATES_SHAPE, seed=0, device=dev).peek(0)
+    shipped, out = rglru._gates, {"shipped": [], "unpinned": [], "comm": {}}
+    for name in ("shipped", "unpinned", "unpinned", "shipped"):
+        rglru._gates = shipped if name == "shipped" else gates_unpinned
+        try:
+            sp = distribute(params, param_shardings(params, mesh, rules))
+            init_opt, step = train.build_trainer(cfg, mesh, rules, lr=3e-4, total_steps=10)
+            opt = init_opt(sp)
+            step(sp, opt, None, batch)
+            times = []
+            for _ in range(GATES_STEPS):
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                step(sp, opt, None, batch)
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+            with CommDebugMode() as comm:
+                step(sp, opt, None, batch)
+            torch.cuda.synchronize()
+        finally:
+            rglru._gates = shipped
+        out[name].append(statistics.median(times))
+        out["comm"][name] = {str(op): n for op, n in comm.get_comm_counts().items()}
+        del sp, opt
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_decode(r: dict, traced: dict, where: str) -> None:
+    """(c)'s limits: f32 logits within 1e-4 of the unsharded decode (on
+    the cache as ``cache_shardings`` places it and as the serving path
+    does), bf16
+    within ``LM_BF16_REL_L2`` of it on the same expert choices (the bf16
+    logits with each side's own choices are read: on four cards the
+    routers' flips moved them 0.0305); the cache bytes those of
+    ``cache_shardings``' shard and of the trace; the collective counts the
+    trace's."""
+    f32, bf16 = r["float32"], r["bfloat16"]
+    check(f32["max_abs"] <= 1e-4,
+          f"dryrun decode {where}: f32 logits {f32['max_abs']} from the unsharded decode")
+    check(f32["head_placed"]["max_abs"] <= 1e-4,
+          f"dryrun decode {where}: f32 logits on the head-placed cache "
+          f"{f32['head_placed']['max_abs']} from the unsharded decode")
+    check(bf16["rel_l2_same_routes"] <= LM_BF16_REL_L2,
+          f"dryrun decode {where}: bf16 logits rel L2 {bf16['rel_l2_same_routes']} on "
+          "the same expert choices")
+    for dtype in ("float32", "bfloat16"):
+        have, want = r[dtype]["cache_bytes"]
+        check(have == want, f"dryrun decode {where} {dtype}: the rank holds {have} cache "
+                            f"bytes, cache_shardings' shard is {want}")
+    check(r["bfloat16"]["cache_bytes"][0] == traced["memory"]["alias_bytes"],
+          f"dryrun decode {where}: cache bytes {r['bfloat16']['cache_bytes'][0]} != the "
+          f"trace's {traced['memory']['alias_bytes']}")
+    for dtype in ("float32", "bfloat16"):
+        check(r[dtype]["comm"] == traced["collectives"]["count_by_op"],
+              f"dryrun decode {where} {dtype}: CommDebugMode {r[dtype]['comm']} != the "
+              f"trace's {traced['collectives']['count_by_op']}")
+
+
+def loops_on_card(dev, mesh, rules) -> dict:
+    """(d): xlstm-1.3b's prefill at published width (bf16, 2 x
+    ``LOOPS_PROMPT``) on this card's (1, 1) mesh, warm, then under
+    ``FlopCounterMode``: its FLOPs and argument bytes, for the trace whose
+    time loops were recorded a few steps and scaled."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import local_bytes
+    from repro_torch.models import forward, init_params, param_shardings, shard, use_sharding
+    from repro_torch.models.sharding import distribute
+
+    cfg = get_config(LOOPS_ARCH)
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(cfg, g, dev)
+    inputs = torch.randint(0, cfg.vocab, (2, LOOPS_PROMPT), generator=g, device=dev,
+                           dtype=torch.int32)  # as launch.specs.batch_specs
+    with torch.no_grad(), use_sharding(mesh, rules):
+        sp = distribute(params, param_shardings(params, mesh, rules))
+        del params
+        placed = shard(inputs, "batch", None)
+        forward(cfg, sp, placed)  # warm
+        sync(dev)
+        t0 = time.perf_counter()
+        with FlopCounterMode(display=False) as fc:
+            logits = forward(cfg, sp, placed)[0]
+        sync(dev)
+        counted_s = time.perf_counter() - t0
+        ok = bool(torch.isfinite(logits.full_tensor()).all())
+    out = {"flops": fc.get_total_flops(), "argument_bytes": local_bytes((sp, placed)),
+           "flops_by_op": {str(k): v for k, v in fc.get_flop_counts()["Global"].items()},
+           "counted_forward_s": counted_s, "finite": ok}
+    del sp
+    torch.cuda.empty_cache()
+    return out
+
+
+def saved_tensor_bytes(step, arguments) -> dict:
+    """One call of ``step`` with autograd's saved tensors counted: the bytes
+    of every storage a backward node keeps (``saved_tensors_hooks``), apart
+    from those of ``arguments`` (parameters the products save); what the
+    allocator holds above the call's start when the forward has saved its
+    last tensor and after the call (its outputs, kept), and its peaks
+    (``memory_stats``; ``allocated`` and ``requested`` above the start)."""
+    own = {t.to_local().untyped_storage().data_ptr() if hasattr(t, "to_local")
+           else t.untyped_storage().data_ptr() for t in arguments}
+    saved, at_save = {}, [0]
+
+    def pack(t):
+        loc = t.to_local() if hasattr(t, "to_local") else t
+        st = loc.untyped_storage()
+        if st.data_ptr() not in own:
+            saved[st.data_ptr()] = st.nbytes()
+        at_save[0] = torch.cuda.memory_allocated()
+        return t
+
+    sync(torch.device("cuda", torch.cuda.current_device()))
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = step()
+    sync(torch.device("cuda", torch.cuda.current_device()))
+    stats, after = torch.cuda.memory_stats(), torch.cuda.memory_allocated()
+    del out
+    return {"saved_bytes": sum(saved.values()), "saved_storages": len(saved),
+            "base_allocated": base, "forward_end_allocated": at_save[0] - base,
+            "outputs_allocated": after - base,
+            **{k: stats[k] - (base if "allocated" in k or "requested" in k else 0)
+               for k in ("allocated_bytes.all.peak", "requested_bytes.all.peak",
+                         "active_bytes.all.peak", "reserved_bytes.all.peak")}}
+
+
 def dryrun_four_cards(procs) -> dict:
     """The trainer's step on four cards, (1, 4) and (2, 2), one process a
     card: rank 0's ``CommDebugMode`` count and argument bytes against the
     trace on a fake group of four (``start_dryrun``'s ``held4``)."""
     from repro_torch.launch.mesh import spawn
 
-    traced = {tuple(r["mesh_shape"].values()): r
+    traced = {(r["kind"], tuple(r["mesh_shape"].values())): r
               for r in dryrun_results(procs["held4"], "four-card traces")}
     out = {}
     for shape in ((1, 4), (2, 2)):
         t0 = time.perf_counter()
         r0 = spawn(dryrun_rank, 4, shape[1], device_type="cuda", join_timeout_s=600,
                    pg_timeout_s=300)[0]
-        t = traced[shape]
+        t = traced["train", shape]
         out["x".join(map(str, shape))] = {
             "count_by_op": [t["collectives"]["count_by_op"], r0["comm"]],
             "argument_bytes": [t["memory"]["argument_bytes"], r0["argument_bytes"]],
@@ -2961,6 +3319,26 @@ def dryrun_four_cards(procs) -> dict:
         check(c["argument_bytes"][0] == c["argument_bytes"][1],
               f"dryrun {name}: traced argument bytes {c['argument_bytes'][0]} != rank "
               f"0's {c['argument_bytes'][1]}")
+    # (c) on (1, 4): the KV sequence over four cards, each rank's check
+    t0 = time.perf_counter()
+    ranks = spawn(decode_on_mesh, 4, 4, device_type="cuda", join_timeout_s=900,
+                  pg_timeout_s=300)
+    for r in ranks:
+        check_decode(r, traced["decode", (1, 4)], f"(1, 4) rank {r['rank']}")
+    out["decode_1x4"] = {"ranks": ranks, "trace_s": traced["decode", (1, 4)]["lower_s"],
+                         "wall_s": time.perf_counter() - t0}
+    # (e) on (1, 4): the RG-LRU gate products' placement, rank 0's times
+    t0 = time.perf_counter()
+    gates = spawn(gates_rank, 4, device_type="cuda", join_timeout_s=600, pg_timeout_s=300)[0]
+    out["gates_1x4"] = {**gates, "wall_s": time.perf_counter() - t0}
+    d = [r["bfloat16"] for r in ranks]
+    print(f"dryrun decode (1, 4), {SHARDED_ARCH} bf16: warm step "
+          f"{[round(r['warm_step_ms'], 3) for r in d]} ms on the cache_shardings cache, "
+          f"{[round(r['head_placed']['warm_step_ms'], 3) for r in d]} ms on the "
+          f"head-placed cache (ranks 0-3)", flush=True)
+    print(f"dryrun gates (1, 4), {GATES_ARCH} {GATES_LAYERS} layers, train "
+          f"{GATES_SHAPE[0]} x {GATES_SHAPE[1]}: step ms shipped {gates['shipped']}, "
+          f"unpinned {gates['unpinned']}; collectives {gates['comm']}", flush=True)
     return out
 
 
@@ -2980,8 +3358,26 @@ def phase_dryrun(dev, counters, procs) -> dict:
     attention layer); read, not held: the predicted peak (argument +
     temporary bytes) against ``max_memory_allocated`` of a warm step, and
     the roofline bound against the warm step's wall (the step's share of
-    its bound on the H100).  The terms are predictions from spec
-    constants, not measurements."""
+    its bound on the H100), and the step's peak split into autograd's
+    saved tensors and the allocator's peaks.  (c) The decode on the cache
+    ``cache_shardings`` places (the KV sequence over the model axis,
+    flash-decoding), granite-moe at published width, a 512-token prompt
+    prefilled unsharded, 4 steps on the (1, 1) NCCL mesh (and with four
+    cards on (1, 4), one process a card): f32 logits within 1e-4 of the
+    unsharded decode, bf16 within ``LM_BF16_REL_L2`` on the same expert
+    choices (on their own, read), each rank's cache
+    bytes ``cache_shardings``' shard and the trace's, rank 0's
+    ``CommDebugMode`` counts the trace's; read: the warm step against the
+    roofline bound of the traced step, and the same steps' time on the
+    cache as the serving path places it (KV heads over the model axis),
+    its f32 logits within 1e-4.  (d) The time loops scaled: the
+    xlstm-1.3b prefill at 2 x 512 traced with each loop recorded 3 steps
+    and scaled, its FLOPs equal to ``FlopCounterMode`` on the real prefill
+    and to the unrolled trace, its argument bytes the real ones; read: both
+    traces' seconds.  (e) With four cards, read: recurrentgemma-2b's
+    train step on (1, 4) with its RG-LRU gate products reduced onto u's
+    channels (as shipped) and left where DTensor puts them.  The terms are
+    predictions from spec constants, not measurements."""
     import torch.distributed as dist
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -2994,6 +3390,7 @@ def phase_dryrun(dev, counters, procs) -> dict:
     from repro_torch.models import forward, init_params, param_shardings, production_rules
     from repro_torch.models import use_sharding
     from repro_torch.models.sharding import distribute
+    from repro_torch.tree import leaves
 
     t_phase = time.perf_counter()
     cfg, batch, seq = get_config(SHARDED_ARCH), 2, 512
@@ -3037,9 +3434,17 @@ def phase_dryrun(dev, counters, procs) -> dict:
                 peak_bytes=torch.cuda.max_memory_allocated() - base
                 + real[kind]["argument_bytes"],
                 launches={k: c.launches for k, c in counters.items()})
+        # the train step's peak, split: autograd's saved tensors and the
+        # allocator's peaks, beside the trace's predicted peak
+        real["train"]["memory_split"] = saved_tensor_bytes(
+            lambda: step(sp, opt, None, data.peek(2)), leaves((sp, opt, data.peek(2))))
     counts = real["prefill"]["launches"]
     del sp, opt
     torch.cuda.empty_cache()
+    # (c) the decode on the cache cache_shardings places, (1, 1) here
+    decode = decode_on_mesh(1)
+    # (d) the time-loop scaling against a real xlstm-1.3b prefill
+    loops = loops_on_card(dev, mesh, rules)
     dist.destroy_process_group()
 
     four = dryrun_four_cards(procs) if "held4" in procs else {
@@ -3047,8 +3452,9 @@ def phase_dryrun(dev, counters, procs) -> dict:
                                 "comparison needs four; not run, not passed"}
     cells = dryrun_results(procs["production"], "production cells")
     held = {r["kind"]: r for r in dryrun_results(procs["held"], "(1, 1) traces")}
-    check(len(cells) == 3 and set(held) == {"train", "prefill"},
+    check(len(cells) == 3 and set(held) == {"train", "prefill", "decode"},
           f"dryrun: {len(cells)} cells and {sorted(held)} traces came back")
+    scaled, unrolled = dryrun_results(procs["loops"], "time-loop traces")
     rows = []
     for r in cells:
         rf = r["roofline"]
@@ -3082,8 +3488,42 @@ def phase_dryrun(dev, counters, procs) -> dict:
             "bound_share_of_wall": t["roofline"]["bound_s"] * 1e3 / m["wall_ms"],
             "trace_s": t["lower_s"],
         }
+    compared["train"]["memory_split"] = {
+        "predicted_argument_bytes": held["train"]["memory"]["argument_bytes"],
+        "predicted_temp_bytes": held["train"]["memory"]["temp_bytes"],
+        **real["train"]["memory_split"]}
+    td = held["decode"]
+    decode_row = {"trace": {"count_by_op": td["collectives"]["count_by_op"],
+                            "alias_bytes": td["memory"]["alias_bytes"],
+                            "argument_bytes": td["memory"]["argument_bytes"],
+                            "bound_s": td["roofline"]["bound_s"],
+                            "dominant_term": td["roofline"]["dominant_term"],
+                            "trace_s": td["lower_s"]},
+                  **decode,
+                  "bound_share_of_warm_step": td["roofline"]["bound_s"] * 1e3
+                  / decode["bfloat16"]["warm_step_ms"]}
+    loops_row = {"flops": [scaled["cost"]["flops_per_device"], loops["flops"],
+                           unrolled["cost"]["flops_per_device"]],
+                 "argument_bytes": [scaled["memory"]["argument_bytes"],
+                                    loops["argument_bytes"],
+                                    unrolled["memory"]["argument_bytes"]],
+                 "flops_by_op": [scaled["cost"]["flops_by_op"], loops["flops_by_op"]],
+                 "trace_s_scaled": scaled["lower_s"], "trace_s_unrolled": unrolled["lower_s"],
+                 "counted_forward_s": loops["counted_forward_s"], "finite": loops["finite"]}
+    print(f"dryrun decode (1, 1), {SHARDED_ARCH} 2 x {DECODE_PROMPT}+{DECODE_STEPS}: warm "
+          f"step {decode['bfloat16']['warm_step_ms']:.3f} ms (bf16), "
+          f"{100 * decode_row['bound_share_of_warm_step']:.3f}% of its "
+          f"{td['roofline']['bound_s'] * 1e3:.4f} ms bound; f32 logits max abs "
+          f"{decode['float32']['max_abs']:.3g}, bf16 rel L2 "
+          f"{decode['bfloat16']['rel_l2_same_routes']:.3g} on the same expert choices, "
+          f"{decode['bfloat16']['rel_l2']:.3g} on its own; "
+          f"prefill {decode['prefill_s']:.1f} s", flush=True)
+    print(f"dryrun loops, {LOOPS_ARCH} prefill 2 x {LOOPS_PROMPT}: trace "
+          f"{scaled['lower_s']} s scaled, {unrolled['lower_s']} s unrolled; FLOPs "
+          f"{loops_row['flops']}", flush=True)
     props = torch.cuda.get_device_properties(0)
     emit({"phase": "dryrun", "cells": rows, "held_1x1": compared, "four_cards": four,
+          "decode_1x1": decode_row, "loops_1x1": loops_row,
           "chip_constants": {"name": H100_SXM.name, "peak_bf16_flops": H100_SXM.peak_bf16_flops,
                              "hbm_bandwidth": H100_SXM.hbm_bandwidth,
                              "nvlink_bandwidth": H100_SXM.nvlink_bandwidth,
@@ -3104,6 +3544,13 @@ def phase_dryrun(dev, counters, procs) -> dict:
     check(counts["flash_attention"] == 4 * cfg.n_layers,
           f"dryrun prefill: flash launched {counts['flash_attention']} times in 4 "
           f"forwards of {cfg.n_layers} attention layers")
+    check_decode(decode, td, "(1, 1)")
+    check(loops_row["finite"], "dryrun loops: xlstm prefill logits not finite")
+    check(loops_row["flops"][0] == loops_row["flops"][1] == loops_row["flops"][2],
+          f"dryrun loops: scaled trace, real step and unrolled trace FLOPs "
+          f"{loops_row['flops']} differ")
+    check(loops_row["argument_bytes"][0] == loops_row["argument_bytes"][1],
+          f"dryrun loops: traced argument bytes {loops_row['argument_bytes']} differ")
     return counts
 
 

@@ -28,15 +28,23 @@ How the traces differ from the reference's lowering:
 - prefill runs ``forward(..., use_kernels=True)``, the card's route:
   flash attention is its custom op, whose fake implementation gives the
   shape and whose FLOP formula counts the tiles the kernel computes;
-- the graph unrolls Python loops (layers, microbatches, the sLSTM's
-  positions).  A train step's microbatch loop is traced once: the step on
-  one microbatch (forward, backward, the gradient reduction and the
-  update), plus ``accum - 1`` more microbatch bodies (forward and
-  backward), the counterpart of the reference's ``execution_counts``.
+- the graph unrolls the layer loop, but records every other loop once and
+  counts its body for the runs it stands for, the counterpart of the
+  reference's ``execution_counts``: a train step's microbatch loop is
+  traced on one microbatch (forward, backward, the gradient reduction and
+  the update), its body counted ``accum - 1`` more times; each time loop
+  (the mLSTM's chunks, the sLSTM's positions;
+  :class:`~repro_torch.models.loops.TimeLoop`) runs three steps, the
+  middle one counted for the steps not run;
+- decode's cache is placed as the reference places it
+  (``launch.specs.cache_shardings``: the KV sequence over the model
+  axis), and ``decode_attention`` attends it flash-decoding style, each
+  model rank its slice of the sequence, combined by two all-reduces.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import time
@@ -49,14 +57,16 @@ import torch
 from ..configs import ARCH_IDS, SHAPES, applicable, get_config
 from ..core.hw import H100_SXM
 from ..models import decode_step, forward, lm_loss, param_shardings, production_rules, use_sharding
+from ..models.loops import recorded_nodes, scaled_loops
 from ..models.sharding import axis_size, distribute, shard, tuned_rules
 from ..optim import adamw
 from ..optim.schedule import warmup_cosine
 from ..tree import leaves, tree_map, unflatten
-from .hlo import ProgramStats, analyze
+from .hlo import ProgramStats, analyze, node_weights
 from .mesh import make_production_mesh
 from .roofline import roofline_report
-from .specs import abstract_opt_state, abstract_params, batch_specs, decode_specs, opt_shardings
+from .specs import (abstract_opt_state, abstract_params, batch_specs, cache_shardings,
+                    decode_specs, opt_shardings)
 
 OUT_DIR = Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
 
@@ -203,24 +213,51 @@ def build_step(cfg, shape, mesh, rules, accum: int | None = None, mark_body=None
 
         return prefill_step, (params, placed_batch(cfg, shape))
 
-    specs = decode_specs(cfg, shape)  # the cache is placed as init_cache places it
+    # the cache as the reference places it: KV sequence over the model axis
+    specs = decode_specs(cfg, shape)
+    cache = distribute(specs["cache"], cache_shardings(cfg, specs["cache"], mesh, rules))
     index = shape.seq_len - 1
 
     def serve_step(params, cache, tokens):
         return decode_step(cfg, params, cache, tokens, index)
 
     tokens = shard(specs["tokens"], "batch", *(None,) * (specs["tokens"].dim() - 1))
-    return serve_step, (params, specs["cache"], tokens)
+    return serve_step, (params, cache, tokens)
 
 
-def record(fn, args, mode: str = "fake") -> torch.fx.GraphModule:
+def _keep_origins(graph) -> None:
+    """Each node ``graph`` creates from here on keeps the frames of
+    ``repro_torch`` it was created under, outermost first, as
+    ``node.meta["origin"]`` (``"models/attention.py:120 _align_weights"``):
+    ``make_fx``'s own stack traces end in PyTorch's frames (DTensor's
+    redistribution, for a collective)."""
+    create = graph.create_node
+
+    def create_node(*args, **kwargs):
+        node = create(*args, **kwargs)
+        frames, f = [], sys._getframe(1)
+        while f is not None:
+            name = f.f_code.co_filename
+            if "/repro_torch/" in name:
+                frames.append(f"{name.split('repro_torch/')[-1]}:{f.f_lineno} "
+                              f"{f.f_code.co_name}")
+            f = f.f_back
+        node.meta["origin"] = frames[::-1]
+        return node
+
+    graph.create_node = create_node
+
+
+def record(fn, args, mode: str = "fake", origins: bool = False) -> torch.fx.GraphModule:
     """This rank's program of ``fn(*args)``: ``make_fx`` (fake tensors;
     with ``mode="real"`` the ops and collectives run for real as they are
     recorded) of the function of the rank's local shards.  Each DTensor
     argument enters as its local tensor (contiguous, as a rank holds it)
     and is wrapped back into its DTensor inside (``from_local``, no
     communication), so every recorded op, DTensor's collectives included,
-    acts on local tensors; DTensor results leave as their local tensors."""
+    acts on local tensors; DTensor results leave as their local tensors.
+    ``origins``: each node keeps the model code it came from
+    (:func:`_keep_origins`)."""
     from torch.distributed.tensor import DTensor
     from torch.fx.experimental.proxy_tensor import make_fx
 
@@ -230,6 +267,10 @@ def record(fn, args, mode: str = "fake") -> torch.fx.GraphModule:
     local = [t.to_local().contiguous() if s else t for t, s in zip(flat, specs)]
 
     def on_locals(*ts):
+        if origins:
+            from torch.fx.experimental.proxy_tensor import get_proxy_mode
+
+            _keep_origins(get_proxy_mode().tracer.graph)
         wrapped = [DTensor.from_local(t, s[0], s[1], run_check=False, shape=s[2],
                                       stride=s[3]) if s else t
                    for t, s in zip(ts, specs)]
@@ -238,18 +279,16 @@ def record(fn, args, mode: str = "fake") -> torch.fx.GraphModule:
                 for o in leaves(out) if isinstance(o, torch.Tensor)]
 
     gm = make_fx(on_locals, tracing_mode=mode)(*local)
+    gm.graph.__dict__.pop("create_node", None)
     # a node nothing uses is not part of the program: some PyTorch versions
     # (2.11) record the fake runs DTensor's sharding propagation makes to
-    # learn an op's output shape; a write in place is kept
+    # learn an op's output shape; a write in place is kept (so model code
+    # computes no output nobody reads, or the trace counts less than a real
+    # run).  How many nodes were recorded is the trace's cost
+    # (``meta["recorded_nodes"]``).
+    gm.meta["recorded_nodes"] = len(gm.graph.nodes)
     gm.graph.eliminate_dead_code()
     return gm
-
-
-def _recorded_nodes() -> set:
-    """The nodes the ``make_fx`` trace in progress has recorded so far."""
-    from torch.fx.experimental.proxy_tensor import get_proxy_mode
-
-    return set(get_proxy_mode().tracer.graph.nodes)
 
 
 def local_bytes(tree) -> int:
@@ -263,29 +302,59 @@ def local_bytes(tree) -> int:
     return total
 
 
-def step_stats(cfg, shape, mesh, rules, accum: int | None = None) -> tuple[ProgramStats, int]:
-    """``(stats, accum)`` of the cell's step on ``mesh`` (under
-    ``use_sharding``), from :func:`record`'s graph read by
-    :func:`.hlo.analyze`.  A train step over ``accum > 1`` microbatches is
-    recorded with its loop run once (on one microbatch) and the loop's
-    body, marked in the graph, counted ``accum - 1`` more times: FLOPs and
-    collectives are then the unrolled step's exactly (the casts and adds
-    of the accumulation compute no FLOP and move nothing).  Its argument
-    bytes are the whole step's, its memory the one-microbatch graph's."""
-    gpn = H100_SXM.gpus_per_node
+def trace_step(cfg, shape, mesh, rules, accum: int | None = None,
+               unrolled: bool = False, origins: bool = False):
+    """``(gm, weights, args, accum)``: :func:`record`'s graph of the cell's
+    step on ``mesh`` (under ``use_sharding``), with each node's run count
+    (:func:`.hlo.node_weights`), the arguments it was traced on, and the
+    microbatches.
+
+    Loops other than the layers' are recorded once and scaled.  A train step over ``accum > 1``
+    microbatches is recorded with its loop run once (on one microbatch,
+    ``args`` that microbatch's) and the loop's body, marked in the graph,
+    counted ``accum - 1`` more times.  Each time loop
+    (:class:`~repro_torch.models.loops.TimeLoop`: the mLSTM's chunks, the
+    sLSTM's positions) runs three steps
+    (:data:`~repro_torch.models.loops.STEPS`), the middle
+    one marked and counted for the steps not run; a time-loop body inside
+    the microbatch body counts for every microbatch
+    (``gm.meta["scaled_loops"]``: how many were scaled).  ``unrolled``
+    runs every step of the time loops instead.  ``origins``:
+    see :func:`record` (the profiler's)."""
     if shape.kind != "train":
         accum = 1
     elif accum is None:
         accum = grad_accum_steps(cfg, shape, mesh, rules)
-    if accum == 1:
-        return analyze(record(*build_step(cfg, shape, mesh, rules, accum=1)), gpn), 1
-    micro = replace(shape, global_batch=shape.global_batch // accum)
+    micro = replace(shape, global_batch=shape.global_batch // accum) if accum > 1 else shape
     marks = []
-    fn, args = build_step(cfg, micro, mesh, rules, accum=accum,
-                          mark_body=lambda: marks.append(_recorded_nodes()))
-    gm = record(fn, args)
-    stats = analyze(gm, gpn).plus(analyze(gm, gpn, only=marks[0]), accum - 1)
-    stats.argument_bytes = local_bytes(args[:2] + (placed_batch(cfg, shape),))
+    with contextlib.ExitStack() as stack:
+        loop_marks = [] if unrolled else stack.enter_context(scaled_loops())
+        fn, args = build_step(cfg, micro, mesh, rules, accum=accum, mark_body=(
+            (lambda: marks.append((recorded_nodes(), accum - 1))) if accum > 1 else None))
+        gm = record(fn, args, origins=origins)
+    gm.meta["scaled_loops"] = len(loop_marks)
+    marks += [(m.nodes, m.extra) for m in loop_marks]
+    return gm, node_weights(marks), args, accum
+
+
+def step_stats(cfg, shape, mesh, rules, accum: int | None = None,
+               unrolled: bool = False) -> tuple[ProgramStats, int]:
+    """``(stats, accum)`` of the cell's step (:func:`trace_step`), read by
+    :func:`.hlo.analyze`.  FLOPs and collectives are the unrolled step's
+    exactly: what the scaling leaves out or adds (the accumulation's casts
+    and adds, the time loops' padding of their outputs) computes no FLOP
+    and moves nothing.  Bytes accessed count that padding (a cat to the
+    loop's full length).  Argument bytes are the whole step's.  Temporary
+    memory is the recorded graph's peak, one microbatch's; with scaled
+    time loops it is ``None``: every step's outputs (and in a train step
+    its saved tensors) outlive the loop, and the graph holds three
+    steps'."""
+    gm, weights, args, accum = trace_step(cfg, shape, mesh, rules, accum, unrolled)
+    stats = analyze(gm, H100_SXM.gpus_per_node, weights=weights)
+    if accum > 1:
+        stats.argument_bytes = local_bytes(args[:2] + (placed_batch(cfg, shape),))
+    if gm.meta["scaled_loops"]:
+        stats.temp_bytes = None
     return stats, accum
 
 
@@ -351,7 +420,8 @@ def cell_result(cfg, shape, mesh, stats: ProgramStats, t_trace: float) -> dict:
             "link_bytes_by_span": dict(coll.link_bytes_by_span),
         },
         "kernel_calls": stats.kernel_calls,  # the port's own ops (flash)
-        "while_trip_counts": [],  # Python loops are unrolled in the graph
+        # loops are counted with their runs already (step_stats): no trip count
+        "while_trip_counts": [],
     }
     result["roofline"] = roofline_report(cfg, shape, result)
     return result

@@ -21,8 +21,11 @@ process group.  :func:`analyze` walks it once and gives
   are separate libraries).
 
 Python loops are unrolled into the graph, so there are no while loops and
-no trip counts to read: the dry-run scales a loop body it traced once
-itself (:meth:`ProgramStats.plus`).
+no trip counts to read.  The dry-run records a loop's body once (the
+microbatch loop; the time loops, :mod:`repro_torch.models.loops`) and
+marks its nodes; :func:`node_weights` turns the marks into how many times
+each node runs, and :func:`analyze` counts each node's FLOPs, bytes and
+collectives that many times.
 """
 from __future__ import annotations
 
@@ -120,31 +123,12 @@ class ProgramStats:
     argument_bytes: int
     output_bytes: int
     alias_bytes: int  # outputs that live in an argument's storage
-    temp_bytes: int  # peak of live non-argument storages
+    temp_bytes: int | None  # peak of live non-argument storages
     #: calls of the port's own ops (``repro_torch::flash_attend``) by name
     kernel_calls: dict[str, int] = field(default_factory=dict)
     #: local FLOPs by op (``aten.mm``, ...)
     flops_by_op: dict[str, int] = field(default_factory=dict)
 
-    def plus(self, body: "ProgramStats", times: int) -> "ProgramStats":
-        """This program with ``body`` (a loop body recorded once, already in
-        this program once) run ``times`` more times: FLOPs, bytes accessed
-        and collectives add up; memory stays this program's."""
-        coll = CollectiveStats()
-        for c in self.collectives.calls:
-            coll.add(*c)
-        for c in body.collectives.calls:
-            coll.add(*c, times=times)
-        return ProgramStats(coll, self.flops + times * body.flops,
-                            self.bytes_accessed + times * body.bytes_accessed,
-                            self.argument_bytes, self.output_bytes,
-                            self.alias_bytes, self.temp_bytes,
-                            _scaled(self.kernel_calls, body.kernel_calls, times),
-                            _scaled(self.flops_by_op, body.flops_by_op, times))
-
-
-def _scaled(whole: dict, body: dict, times: int) -> dict:
-    return {k: whole.get(k, 0) + times * body.get(k, 0) for k in whole.keys() | body.keys()}
 
 
 def _tensors(x) -> list:
@@ -179,6 +163,21 @@ def _collective(node):
     return _COLLECTIVES.get(target._opname.rstrip("_"))
 
 
+def collective_call(node, gpus_per_node: int = 8):
+    """``(op, group size, operand bytes, link bytes, spans nodes)`` of a
+    functional-collective node (one entry of :attr:`CollectiveStats.calls`),
+    else None."""
+    op = _collective(node)
+    if op is None:
+        return None
+    ranks = _group(node.args[-1])
+    val = node.meta.get("val")
+    outs = [t for t in (val if isinstance(val, (list, tuple)) else [val])
+            if isinstance(t, torch.Tensor)]
+    operand, link = collective_bytes(op, sum(_nbytes(t) for t in outs), len(ranks))
+    return op, len(ranks), operand, link, len({r // gpus_per_node for r in ranks}) > 1
+
+
 def comm_counts(mode) -> dict[str, int]:
     """A ``CommDebugMode``'s collective counts under the HLO op names, as
     ``count_by_op`` keys them."""
@@ -191,13 +190,26 @@ def comm_counts(mode) -> dict[str, int]:
     return out
 
 
+def node_weights(marks) -> dict:
+    """How many times each marked node runs, from ``marks``: pairs of (a
+    set of nodes, a loop body recorded once, and how many more times it
+    runs).  A node in several bodies (a time loop's inside a microbatch's)
+    runs the product of their counts; a node in none runs once."""
+    weights: dict = {}
+    for nodes, extra in marks:
+        for n in nodes:
+            weights[n] = weights.get(n, 1) * (1 + extra)
+    return weights
+
+
 def analyze(gm: torch.fx.GraphModule, gpus_per_node: int = 8,
-            only: set | None = None) -> ProgramStats:
+            weights: dict | None = None) -> ProgramStats:
     """Collectives, local FLOPs and live memory of a ``make_fx`` graph (see
     the module docstring).  A group spans nodes when its global ranks fall
-    in more than one block of ``gpus_per_node``.  With ``only`` (a set of
-    the graph's nodes: a loop body), the collectives, FLOPs and bytes
-    accessed are those of these nodes; memory is the whole graph's."""
+    in more than one block of ``gpus_per_node``.  With ``weights`` (node ->
+    runs, :func:`node_weights`), each node's collectives, FLOPs and bytes
+    accessed count that many times; memory is the graph's as recorded."""
+    weights = weights or {}
     coll = CollectiveStats()
     flops = accessed = 0
     kernels: dict[str, int] = {}
@@ -235,23 +247,19 @@ def analyze(gm: torch.fx.GraphModule, gpus_per_node: int = 8,
         outs = [t for t in (val if isinstance(val, (list, tuple)) else [val])
                 if isinstance(t, torch.Tensor)]
         packet = getattr(node.target, "_overloadpacket", None)
-        if only is None or node in only:
-            op = _collective(node)
-            if op is not None:
-                ranks = _group(node.args[-1])
-                result = sum(_nbytes(t) for t in outs)
-                operand, link = collective_bytes(op, result, len(ranks))
-                spans = len({r // gpus_per_node for r in ranks}) > 1
-                coll.add(op, len(ranks), operand, link, spans)
-            if getattr(node.target, "namespace", None) == "repro_torch":
-                kernels[str(packet)] = kernels.get(str(packet), 0) + 1
-            n_flops = _flops(node, packet, val)
-            if n_flops:
-                flops += n_flops
-                by_op[str(packet)] = by_op.get(str(packet), 0) + n_flops
-            if not getattr(node.target, "is_view", False):
-                ins = _tensors((node.args, node.kwargs))
-                accessed += sum(_nbytes(t) for t in ins + outs)
+        w = weights.get(node, 1)
+        call = collective_call(node, gpus_per_node)
+        if call is not None:
+            coll.add(*call, times=w)
+        if getattr(node.target, "namespace", None) == "repro_torch":
+            kernels[str(packet)] = kernels.get(str(packet), 0) + w
+        n_flops = _flops(node, packet, val)
+        if n_flops:
+            flops += w * n_flops
+            by_op[str(packet)] = by_op.get(str(packet), 0) + w * n_flops
+        if not getattr(node.target, "is_view", False):
+            ins = _tensors((node.args, node.kwargs))
+            accessed += w * sum(_nbytes(t) for t in ins + outs)
         for t in outs:
             st = _storage(t)
             if st not in born and st not in args_st:

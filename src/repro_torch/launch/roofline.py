@@ -10,8 +10,8 @@ The dry-run's numbers describe ONE rank's program, so the chip count
 cancels inside each term.  As in the reference, the compute term uses the
 exact analytic FLOPs (:mod:`.analytic`) and the memory term the analytic
 HBM floor; the per-rank graph's FLOPs are kept as a cross-check.  The
-graph unrolls Python loops, so ``_scan_scale`` is 1 (no trip counts are
-recorded).
+graph's counts already include every loop's runs, so ``_scan_scale`` is 1
+(no trip counts are recorded).
 
 The collective term takes the link by the group's span
 (``result["collectives"]["link_bytes_by_span"]``): a group inside one
@@ -39,7 +39,7 @@ def model_flops(cfg: ArchConfig, shape) -> float:
 
 def _scan_scale(result: dict, cfg: ArchConfig) -> float:
     """Trip-count multiplier for once-counted while bodies (layer scan);
-    1 for the port's graphs, which record no trip counts."""
+    1 for the port's graphs, whose counts include every loop's runs."""
     trips = [t for t in result.get("while_trip_counts", []) if t > 1]
     if not trips:
         return 1.0

@@ -23,7 +23,7 @@ from ..models.config import ArchConfig
 from ..models.layers import torch_dtype
 from ..models.sharding import NamedSharding, axis_size
 from ..optim import AdamWState, adamw
-from ..tree import tree_map
+from ..tree import leaves, tree_map
 
 META = torch.device("meta")
 
@@ -46,13 +46,15 @@ def batch_specs(cfg: ArchConfig, shape: ShapeSuite) -> dict:
 
 
 def decode_specs(cfg: ArchConfig, shape: ShapeSuite) -> dict:
-    """Decode step inputs: one token + the full KV/state cache."""
+    """Decode step inputs: one token + the full KV/state cache (plain
+    tensors, KV heads aligned to the current mesh; :func:`cache_shardings`
+    places it)."""
     b, s = shape.global_batch, shape.seq_len
     if cfg.embedded_inputs:
         tokens = _meta((b, 1, cfg.d_model), torch_dtype(cfg))
     else:
         tokens = _meta((b, 1), torch.int32)
-    return {"tokens": tokens, "cache": init_cache(cfg, b, s, META),
+    return {"tokens": tokens, "cache": init_cache(cfg, b, s, META, place=False),
             "index": _meta((), torch.int32)}
 
 
@@ -142,3 +144,17 @@ def cache_shardings(cfg, cache_abs, mesh, rules: ShardingRules):
         return NamedSharding(mesh, ())
 
     return tree_map(one, cache_abs)
+
+
+def local_bytes_of(tree, shardings) -> int:
+    """Bytes one device holds of ``tree`` (tensors or meta stand-ins)
+    placed by ``shardings`` (a tree of :class:`NamedSharding` of the same
+    structure): each leaf with every sharded dim divided by the size of
+    its mesh axes."""
+    total = 0
+    for leaf, ns in zip(leaves(tree), leaves(shardings)):
+        n = leaf.numel() * leaf.element_size()
+        for ax in ns.spec:
+            n //= axis_size(ns.mesh, ax)
+        total += n
+    return total

@@ -246,20 +246,16 @@ def decode_attention(
     q, k_new, v_new = _project_qkv(cfg, p, x, positions)
     size = cache.k.shape[1]
     slot = cur_index % size if window > 0 else cur_index
+    seq_dim = _sequence_dim(cache.k)
+    if seq_dim is not None:
+        out = _decode_over_slots(cfg, q, k_new, v_new, cache, cur_index, slot, window,
+                                 seq_dim)
+        _, _, _, wo = _align_weights(cfg, p)
+        return shard(out.reshape(b, 1, -1) @ wo, "batch", None, None), cache
 
     # absolute positions held by each cache slot
     slots = torch.arange(size, dtype=torch.int64, device=x.device)
-    if window > 0:
-        # ring buffer: slot s holds the most recent position p with
-        # p % size == s and p <= cur_index
-        k_pos = cur_index - (slot - slots) % size
-    else:
-        k_pos = slots
-    valid = (k_pos <= cur_index) & (k_pos >= 0)
-    if window > 0:
-        valid &= k_pos > cur_index - window
-    k_pos = torch.where(valid, k_pos, INT32_MAX)
-    live = (k_pos <= cur_index)[None, None, None, None]
+    live = _live_slots(slots, size, slot, cur_index, window)
 
     def attend_cache(q, k_new, v_new, ck, cv):
         # this rank's batch rows and heads; the slot is written in place
@@ -276,3 +272,72 @@ def decode_attention(
     out = on_shards(attend_cache, q, k_new, v_new, cache.k, cache.v)
     _, _, _, wo = _align_weights(cfg, p)
     return shard(out.reshape(b, 1, -1) @ wo, "batch", None, None), cache
+
+
+def _live_slots(slots, size: int, slot: int, cur_index: int, window: int):
+    """Which cache ``slots`` (global slot numbers) hold a position this
+    token attends, shaped to mask (B, H, G, 1, slots) scores."""
+    if window > 0:
+        # ring buffer: slot s holds the most recent position p with
+        # p % size == s and p <= cur_index
+        k_pos = cur_index - (slot - slots) % size
+    else:
+        k_pos = slots
+    valid = (k_pos <= cur_index) & (k_pos >= 0)
+    if window > 0:
+        valid &= k_pos > cur_index - window
+    k_pos = torch.where(valid, k_pos, INT32_MAX)
+    return (k_pos <= cur_index)[None, None, None, None]
+
+
+def _sequence_dim(cache_k):
+    """The mesh dim a layer's cache (B, S, H, D) shards its sequence over
+    (``launch.specs.cache_shardings``' placement), else None (the heads'
+    placement of ``init_cache``, or no mesh)."""
+    from torch.distributed.tensor import Shard
+
+    for i, pl in enumerate(getattr(cache_k, "placements", ())):
+        if isinstance(pl, Shard) and pl.dim == 1:
+            return i
+    return None
+
+
+def _decode_over_slots(cfg: ArchConfig, q, k_new, v_new, cache: KVCache, cur_index: int,
+                       slot: int, window: int, dim: int):
+    """Decode against a cache whose sequence is sharded over mesh dim
+    ``dim`` (flash-decoding): each rank of that dim attends its own slice
+    of slots with every query head, keeping its running max, sum and
+    unnormalised output; the ranks combine them with an all-reduce max, a
+    rescale and one all-reduce sum.  Only the rank that holds ``slot``
+    writes the new key and value (``slot`` is a host int, so this is a
+    branch each rank takes or not).  Returns the output (B, 1, Hq, D) on
+    the heads' placement that ``wo`` expects."""
+    from torch.distributed import _functional_collectives as funcol
+
+    mesh = cache.k.device_mesh
+    group = mesh.get_group(dim)
+    per = cache.k.shape[1] // mesh.size(dim)
+    lo = mesh.get_local_rank(dim) * per
+    # every query head, and every KV head of the new slot, on each rank
+    q, k_new, v_new = (shard(t, "batch", None, None, None) for t in (q, k_new, v_new))
+    slots = torch.arange(lo, lo + per, dtype=torch.int64, device=q.device)
+    live = _live_slots(slots, cache.k.shape[1], slot, cur_index, window)
+
+    def attend_slots(q, k_new, v_new, ck, cv):
+        if lo <= slot < lo + per:
+            ck[:, slot - lo] = k_new[:, 0]
+            cv[:, slot - lo] = v_new[:, 0]
+        qg = _group(q, ck.shape[2]).float() / np.sqrt(cfg.head_dim)
+        s = torch.where(live, torch.einsum("bqhgd,bkhd->bhgqk", qg, ck.float()), NEG_INF)
+        m = s.amax(dim=-1)
+        pexp = torch.where(live, torch.exp(s - m[..., None]), 0.0)
+        m_all = funcol.all_reduce(m, "max", group)
+        scale = torch.exp(m - m_all)
+        o = torch.einsum("bhgqk,bkhd->bhgqd", pexp, cv.float()) * scale[..., None]
+        ol = funcol.all_reduce(torch.cat([o, (pexp.sum(dim=-1) * scale)[..., None]], dim=-1),
+                               "sum", group)
+        out = ol[..., :-1] / ol[..., -1:]
+        return out.permute(0, 3, 1, 2, 4).reshape(q.shape).to(q.dtype)
+
+    out = on_shards(attend_slots, q, k_new, v_new, cache.k, cache.v)
+    return shard(out, "batch", None, _heads_axis(cfg), None)

@@ -63,10 +63,12 @@ class RGLRUState(NamedTuple):
 
 
 def _gates(p: dict, u: torch.Tensor):
-    """u: (..., R) post-conv activations -> (a_t, gated input), float32."""
+    """u: (B, [S,] R) post-conv activations -> (a_t, gated input), float32.
+    On a mesh each gate's product is reduced onto u's channel placement."""
     uf = u.float()
-    r_t = torch.sigmoid(uf @ p["w_a"].float() + p["b_a"].float())
-    i_t = torch.sigmoid(uf @ p["w_x"].float() + p["b_x"].float())
+    lead = ("batch",) + (None,) * (u.dim() - 2)
+    r_t = torch.sigmoid(shard(uf @ p["w_a"].float(), *lead, "d_ff") + p["b_a"].float())
+    i_t = torch.sigmoid(shard(uf @ p["w_x"].float(), *lead, "d_ff") + p["b_x"].float())
     log_a = -_C * r_t * F.softplus(-p["lam"].float())
     a_t = torch.exp(log_a)
     b_t = torch.sqrt(torch.clamp_min(1.0 - a_t**2, 1e-12)) * (i_t * uf)

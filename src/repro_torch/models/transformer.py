@@ -13,8 +13,10 @@ Decode updates the cache in place: each layer's state is a view into the
 stacked cache, so a KV slot is written and a recurrent state is copied
 into its view (``copy_``), never rebound.  On a device mesh the cache is
 made of DTensors (batch over the data axes, KV heads over the model axis
-where it divides them); each write lands in the rank's own slice, after
-the new state is redistributed to the slice's placements.
+where it divides them; or, as the dry-run places it, the KV sequence over
+the model axis, which decode attends flash-decoding style); each write
+lands in the rank's own slice, after the new state is redistributed to the
+slice's placements.
 """
 from __future__ import annotations
 
@@ -284,21 +286,31 @@ def forward(cfg: ArchConfig, params: dict, inputs: torch.Tensor, positions=None,
     return logits_head(cfg, params["embeddings"], h), aux
 
 
-def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None):
-    """Decode-state tree matching the stacked/remainder structure.  On a
-    mesh every state is sharded over the batch, and KV heads as the
-    attention projections shard them."""
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None, *,
+               place: bool = True):
+    """Decode-state tree matching the stacked/remainder structure, placed
+    by :func:`place_cache`; with ``place=False`` the states stay plain
+    tensors (KV heads still aligned to the mesh), for a caller that places
+    them itself (the dry-run, by ``launch.specs.cache_shardings``)."""
     dev = resolve_device(device)
     reps, pat, rem = _layer_plan(cfg)
-    scanned = [
-        _shard_state(cfg, kind, _stack([init_block_state(cfg, kind, batch, max_len, dev)
-                                        for _ in range(reps)]), stacked=True)
-        if reps else None
-        for kind in pat
-    ]
-    remainder = [_shard_state(cfg, kind, init_block_state(cfg, kind, batch, max_len, dev))
-                 for kind in rem]
-    return {"scanned": scanned, "remainder": remainder}
+    cache = {
+        "scanned": [_stack([init_block_state(cfg, kind, batch, max_len, dev)
+                            for _ in range(reps)]) if reps else None for kind in pat],
+        "remainder": [init_block_state(cfg, kind, batch, max_len, dev) for kind in rem],
+    }
+    return place_cache(cfg, cache) if place else cache
+
+
+def place_cache(cfg: ArchConfig, cache: dict) -> dict:
+    """``cache`` placed as the serving and training paths place it: on a
+    mesh every state is sharded over the batch, and KV heads as the
+    attention projections shard them; the identity without a mesh."""
+    _, pat, rem = _layer_plan(cfg)
+    return {"scanned": [_shard_state(cfg, kind, st, stacked=True) if st is not None else None
+                        for kind, st in zip(pat, cache["scanned"])],
+            "remainder": [_shard_state(cfg, kind, st)
+                          for kind, st in zip(rem, cache["remainder"])]}
 
 
 def _shard_state(cfg: ArchConfig, kind: str, state, stacked: bool = False):

@@ -12,7 +12,8 @@ Training uses the chunkwise-parallel form: within a chunk of length L the
 contribution of steps s <= t is an attention-like masked GEMM, and only the
 (C, n, m) state crosses chunk boundaries — SP-Generic pipelining of a
 two-phase chain in the paper's taxonomy.  The reference's ``lax.scan``
-over chunks is a Python loop here.  Decode is the O(1) recurrence.
+over chunks is a Python loop here (a :class:`~.loops.TimeLoop`, which the
+dry-run traces a few steps of and scales).  Decode is the O(1) recurrence.
 
 sLSTM keeps scalar memories with a nonlinear recurrent connection
 (block-diagonal R acting on h_{t-1}), so it is sequential: one loop step a
@@ -29,6 +30,7 @@ import torch.nn.functional as F
 from ..device import resolve_device
 from .config import ArchConfig
 from .layers import normal, torch_dtype
+from .loops import TimeLoop
 from .sharding import local_param, on_shards, shard
 
 # ---------------------------------------------------------------------------
@@ -76,12 +78,18 @@ def _mlstm_qkv_gates(cfg: ArchConfig, p: dict, x: torch.Tensor):
     i_raw = gif[:, :, 0] + p["b_i"].float()
     f_raw = gif[:, :, 1] + p["b_f"].float()
     log_f = -F.softplus(-f_raw)  # log sigmoid
-    o = torch.sigmoid((x @ p["w_o"]).float())
+    # the output gate on the model axis as ``lstm_out``'s rows, which it
+    # feeds: left to DTensor, its product is reduced onto rows, and the
+    # backward's cost model then reads every row on the host (a train
+    # trace of minutes)
+    o = torch.sigmoid(shard(x @ p["w_o"], "batch", None, "heads").float())
     return q, k, v, i_raw, log_f, o
 
 
-def _mlstm_chunk(q, k, v, i_raw, log_f, state: MLSTMState):
-    """One chunk (B, L, H, ...) given incoming state; returns (h, state)."""
+def _mlstm_chunk(q, k, v, i_raw, log_f, state: MLSTMState, state_out: bool = True):
+    """One chunk (B, L, H, ...) given incoming state; returns (h, state),
+    the state None with ``state_out=False`` (the last chunk's, which
+    nothing reads)."""
     l = q.shape[1]
     # per-position cumulative decay within the chunk
     b_cum = torch.cumsum(log_f, dim=1)  # (B, L, H)
@@ -111,6 +119,8 @@ def _mlstm_chunk(q, k, v, i_raw, log_f, state: MLSTMState):
     den = intra_den + inter_den
     floor = torch.exp(-m_t)
     h_out = num / torch.maximum(den.abs(), floor)[..., None]
+    if not state_out:
+        return h_out, None
 
     # state update
     big_b = b_cum[:, -1]  # (B, H)
@@ -126,7 +136,8 @@ def _mlstm_chunk(q, k, v, i_raw, log_f, state: MLSTMState):
 
 def _mlstm_scan(q, k, v, i_raw, log_f, chunk: int):
     """The chunkwise mLSTM over (B, S, H, ...) from a zero state; returns
-    h (B, S, H, D)."""
+    h (B, S, H * D): the heads are flattened on each rank's own shard, never
+    on a DTensor whose model axis does not divide them."""
     b, s, h, hd = q.shape
     chunk = min(chunk, s)
     n_chunks = -(-s // chunk)
@@ -139,23 +150,28 @@ def _mlstm_scan(q, k, v, i_raw, log_f, chunk: int):
     state = MLSTMState(zeros(b, h, hd, hd), zeros(b, h, hd),
                        torch.full((b, h), -1e30, dtype=torch.float32, device=q.device))
     hs = []
-    for c in range(n_chunks):
+    loop = TimeLoop(n_chunks)
+    for c in loop:
         blk = slice(c * chunk, (c + 1) * chunk)
-        h_out, state = _mlstm_chunk(q[:, blk], k[:, blk], v[:, blk], i_raw[:, blk],
-                                    log_f[:, blk], state)
+        *ins, st_c, st_n, st_m = loop.enter(c, q[:, blk], k[:, blk], v[:, blk],
+                                            i_raw[:, blk], log_f[:, blk], *state)
+        last = c == loop.runs - 1  # its outgoing state is never read
+        h_out, state = _mlstm_chunk(*ins, MLSTMState(st_c, st_n, st_m), state_out=not last)
+        if not last:
+            h_out, *state = loop.leave(c, h_out, *state)
+            state = MLSTMState(*state)
         hs.append(h_out)
-    return torch.cat(hs, dim=1)[:, :s]
+    return loop.full(torch.cat(hs, dim=1), dim=1)[:, :s].flatten(2)
 
 
 def mlstm_block(cfg: ArchConfig, p: dict, x: torch.Tensor, chunk: int = 256) -> torch.Tensor:
     """Full-sequence mLSTM (training/prefill), chunk by chunk; on a mesh
     on each rank's rows and heads."""
-    b, s, d = x.shape
     q, k, v, i_raw, log_f, o = _mlstm_qkv_gates(cfg, p, x)
     per_head = [shard(t, "batch", None, "heads", None) for t in (q, k, v)]
     gates = [shard(t, "batch", None, "heads") for t in (i_raw, log_f)]
     hs = on_shards(_mlstm_scan, *per_head, *gates, extra=(chunk,))
-    out = (o.reshape(b, s, d) * hs.reshape(b, s, d)).to(x.dtype)
+    out = (o * hs).to(x.dtype)
     return shard(out @ p["lstm_out"], "batch", "sequence", None)
 
 
@@ -239,10 +255,12 @@ def _slstm_scan(cfg: ArchConfig, wx: torch.Tensor, lstm_r, bias) -> torch.Tensor
     p = {"lstm_r": lstm_r, "bias": bias}
     state = SLSTMState.zeros(cfg, wx.shape[0], wx.device)
     hs = []
-    for t in range(wx.shape[1]):
-        state = _slstm_step(cfg, p, wx[:, t], state)
+    loop = TimeLoop(wx.shape[1])
+    for t in loop:
+        wx_t, *state = loop.enter(t, wx[:, t], *state)
+        state = SLSTMState(*loop.leave(t, *_slstm_step(cfg, p, wx_t, SLSTMState(*state))))
         hs.append(state.h)
-    return torch.stack(hs, dim=1)
+    return loop.full(torch.stack(hs, dim=1), dim=1)
 
 
 def slstm_block(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:

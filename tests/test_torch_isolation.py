@@ -1,4 +1,5 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the port's
+profiler (``tools/collective_profile_torch.py``) import
 neither ``jax`` nor the reference package ``repro`` (not even its
 framework-free modules)."""
 import ast
@@ -27,7 +28,7 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "repro_torch.models.xlstm, repro_torch.launch.analytic, "
         "repro_torch.models.sharding, repro_torch.launch.mesh, "
         "repro_torch.launch.specs, repro_torch.launch.dryrun, "
-        "repro_torch.launch.hlo, repro_torch.launch.roofline\n"
+        "repro_torch.launch.hlo, repro_torch.launch.roofline, repro_torch.models.loops\n"
         "import repro_torch.configs.gcn_paper\n"
         "from repro_torch.configs import all_configs\n"
         "all_configs()\n"
@@ -44,7 +45,8 @@ def test_import_pulls_in_no_jax_and_no_reference():
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                          ROOT / "tools" / "collective_profile_torch.py"],
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_no_module_imports_jax_or_reference(path):
