@@ -6,6 +6,7 @@ any failure.
     python3 chip_smoke.py --only lm_families   # phase 11 alone, in a fresh process
     python3 chip_smoke.py --only sharded       # phase 12 alone (on 4 cards: also one process a card)
     python3 chip_smoke.py --only dryrun        # phase 13 alone
+    python3 chip_smoke.py --only lanes         # phase 14 alone (the GNN kernels built first)
 
 Phases, one JSON line each (no phase's error is caught):
 
@@ -52,30 +53,30 @@ Phases, one JSON line each (no phase's error is caught):
                 again (no new build, bit-identical); (b) a second engine
                 under seeded faults and one ``kill_pallas`` window: every
                 fault a typed non-ok status, every ok output bit-identical
-                to (a)'s; (c) a revived engine on (a)'s ``ProgramStore``:
-                ``precompile()``, then no mapper search, no build,
-                bit-identical; (d) cora at 1433 -> 16 -> 8 made oversized
-                (``max_nodes=1024``) and served by ``row_stream``
-                partitions, bit-identical to the monolithic kernel-tier
-                forward under sp_opt/AC and under seq/CA; (e)
-                ``calibrate()`` on the card, the fitted model resolved by an
-                engine on its store, a measured ``rerank_topk``, then no
-                build on the request path.  Healthy parts assert no
-                downgrade, every result ``ok`` from the top tier, and a
-                kernel launch count that moved.
+                to (a)'s, every degraded one within 2e-4; (c) cora at 1433
+                -> 16 -> 8 made oversized (``max_nodes=1024``) and served
+                by ``row_stream`` partitions, bit-identical to the
+                monolithic kernel-tier forward under sp_opt/AC and under
+                seq/CA; (d) ``calibrate()`` on the card, the fitted model
+                resolved by an engine on its store, a measured
+                ``rerank_topk``, then no build on the request path.
+                Healthy parts assert no downgrade, every result ``ok`` from
+                the top tier, and a kernel launch count that moved.  A
+                revived engine on a store is the restart lane's drill
+                (phase 14).
 6. async      — the async front-end (``AsyncEngine`` on ``[cuda:0]``,
                 same model and weights as ``engine``): the 64 requests as a
                 blast, bit-identical to the sync engine, twice (no build
-                the second time, one ``torch.profiler`` window: device busy
-                share, kernel time by name, host-to-device copy time beside
-                kernels), a paced stream (p50 / p99), a revived front-end
+                the second time), then under one ``torch.profiler`` window
+                (device busy share, kernel time by name, host-to-device
+                copy time beside kernels), a revived front-end
                 on the engine's store (``precompile()``, then no mapper
                 search, no build), admission (a malformed request rejected
                 at once; ``max_queue_graphs`` shedding with
                 ``retry_after_s``), and cora made oversized through
-                ``serve_partitioned``, bit-identical to (d).  Per batch,
+                ``serve_partitioned``, bit-identical to (c).  Per batch,
                 the flusher's staging seconds beside the worker's forward
-                seconds.
+                seconds.  The paced stream is the async lane's (phase 14).
 7. pp         — the paper's Parallel Pipeline on two CUDA streams of one
                 card (``mesh=[cuda:0, cuda:0]``) at cora layer 0 and the
                 engine's (512, 256) batch's layer 0 (256 bands): eager tier
@@ -159,8 +160,27 @@ Phases, one JSON line each (no phase's error is caught):
                 attention layer; the predicted peak against
                 ``max_memory_allocated`` and the roofline bound against the
                 warm wall read, not held.
+14. lanes     — run after ``pp``: the port's benchmark lanes and examples
+                (``repro_torch.bench``, ``repro_torch.examples``) as a user
+                runs them: the plain serve lane at full size (1000
+                requests, GCN 32 -> 16 -> 8, engine against naive per-graph
+                compile + run), chaos, restart, async (two workers on two
+                streams of this card) and giant at their smoke sizes, then
+                quickstart, gnn_parallel_pipeline and serve_async.  Each
+                lane holds its own correctness guards (engine vs naive
+                1e-5, bit-identity across chaos, restart, async and giant,
+                typed statuses, no build warm, no downgrade, no ``nvcc`` on
+                revival) and, in the serve and giant lanes, the kernel tier
+                against the eager tier on the same weights at 2e-4 (the
+                whole 1000-request stream; every giant graph); the async
+                lane also reports its blast against a sync engine warmed
+                by traffic alone (bitwise agreement counted, held at
+                2e-4); graphs/s, p50 / p99 and each speed ratio are
+                printed beside the lane's floor (read here, enforced by the
+                lane's CLI); spmm, fused_agg_cmb and gemm_dataflow must
+                each launch.
 
-Launch counts are set to 0 just before phases 3-13 (each part of the engine
+Launch counts are set to 0 just before phases 3-14 (each part of the engine
 and async phases that serves the main path) and read just after;
 the ``{"kernels": [...]}`` line reports them.  The last line is
 ``{"ok": true, "device": {...}}``; it is printed only when every phase
@@ -954,16 +974,6 @@ def reddit_requests(n, f_in, seed):
         for i, g in enumerate(sample_graphs(TABLE4["reddit-bin"], n, seed=seed))]
 
 
-def served_ok(results, eng, what) -> None:
-    """The no-hidden-fallback check: every result ``ok`` from the top tier
-    and no downgrade, so no kernel slipped into the eager tier."""
-    top = eng.ladder[0].name
-    for r in results:
-        check(r.status == "ok" and r.tier == top,
-              f"{what}: rid {r.rid} is {r.status} on {r.tier} ({r.error})")
-    check(eng.stats().n_downgrades == 0, f"{what}: {eng.stats().n_downgrades} downgrades")
-
-
 def same_outputs(got, want, what, exact=True) -> float:
     worst = 0.0
     for a, b in zip(got, want):
@@ -978,12 +988,13 @@ def same_outputs(got, want, what, exact=True) -> float:
 
 def phase_engine(dev, counters, n_requests=64) -> tuple[dict, dict]:
     """The ported serving runtime, as a user drives it: (a) serve, (b)
-    chaos, (c) restart, (d) giant, (e) calibrate (see the module
-    docstring).  Returns the launches of (a), (c) and (d), and what the
-    ``async`` phase holds its results against (the store is left for it)."""
+    chaos, (c) giant, (d) calibrate (see the module docstring).  Returns
+    the launches of (a) and (c), and what the ``async`` phase holds its
+    results against (the store is left for it)."""
     import dataclasses
 
     import repro_torch
+    from repro_torch.bench.serve_gnn import check_top_tier
     from repro_torch.core.calibrate import backend_fingerprint, calibrate
     from repro_torch.core.hw import DEFAULT_ACCEL
     from repro_torch.core.schedule import ModelSchedule
@@ -1023,11 +1034,11 @@ def phase_engine(dev, counters, n_requests=64) -> tuple[dict, dict]:
     cold_s = time.perf_counter() - t0
     check(counts["fused_agg_cmb"] > 0 or counts["spmm"] > 0,
           f"engine serve launched no kernel: {counts}")
-    served_ok(first, eng, "engine serve")
+    check_top_tier(first, eng, "engine serve")
     cold = eng.stats()
     solo = engine(params, policy=BucketPolicy(max_graphs=1))
     solo_res = solo.submit(reqs)
-    served_ok(solo_res, solo, "engine solo")
+    check_top_tier(solo_res, solo, "engine solo")
     err_solo = same_outputs(first, solo_res, "serve vs solo", exact=False)
     eager = engine(params, use_pallas=False)
     eager_res = eager.submit(reqs)
@@ -1040,7 +1051,7 @@ def phase_engine(dev, counters, n_requests=64) -> tuple[dict, dict]:
     again, _ = count(lambda: eng.submit(reqs))
     warm_s = time.perf_counter() - t0
     check(repro_torch.trace_count() == tc0, "the warm stream built executables")
-    served_ok(again, eng, "engine serve again")
+    check_top_tier(again, eng, "engine serve again")
     same_outputs(again, first, "serve again")
     warm = eng.stats()
     walls = eng.monitor.times
@@ -1057,21 +1068,6 @@ def phase_engine(dev, counters, n_requests=64) -> tuple[dict, dict]:
           "new_builds_second_pass": 0, "second_pass_bit_identical": True,
           "max_abs_err_vs_solo": err_solo, "max_abs_err_vs_eager": err_eager,
           "eager_tier_warm_wall_s": eager_warm_s, "tol": TOL_PATH, "ok": True})
-
-    # (c) restart: a revived engine on the same store
-    revived = engine(params, store=ProgramStore(store_dir / "serve"))
-    rep = revived.precompile()
-    check(rep.n_searches == 0 and rep.n_store_hits == rep.n_shapes,
-          f"precompile: {rep.as_dict()}")
-    tc0 = repro_torch.trace_count()
-    res_c, _ = count(lambda: revived.submit(reqs))
-    check(repro_torch.trace_count() == tc0, "the revived engine built on the request path")
-    check(revived.stats().n_searches == 0, "the revived engine ran the mapper")
-    served_ok(res_c, revived, "engine restart")
-    same_outputs(res_c, first, "restart")
-    emit({"phase": "engine", "part": "restart", "precompile": rep.as_dict(),
-          "request_path_builds": 0, "mapper_searches": 0,
-          "store_hits": revived.stats().store_hits, "bit_identical": True, "ok": True})
 
     # (b) chaos: seeded faults and a kernel-backend outage
     # a seeded background mix, plus one sticky kernel fault (its batch
@@ -1113,7 +1109,7 @@ def phase_engine(dev, counters, n_requests=64) -> tuple[dict, dict]:
           "retries": st.n_retries, "solo_retries": st.n_solo_retries,
           "stragglers": st.n_stragglers, "ok_bit_identical_to_serve": True, "ok": True})
 
-    # (d) giant: cora partitioned into row_stream closures
+    # (c) giant: cora partitioned into row_stream closures
     cora, _ = load_dataset("cora")
     gdims = [(1433, 16), (16, 8)]
     hw = dataclasses.replace(DEFAULT_ACCEL, gb_capacity_bytes=None)
@@ -1161,7 +1157,7 @@ def phase_engine(dev, counters, n_requests=64) -> tuple[dict, dict]:
                                  w0)["rows"] for v in (2708, 4096)}
     emit({**giant_rec, "ok": True})
 
-    # (e) calibrate on the card; an engine on the store resolves the model
+    # (d) calibrate on the card; an engine on the store resolves the model
     cal_store = ProgramStore(store_dir / "cal")
     fit = calibrate(store=cal_store, fast=True, use_pallas=True, device=dev,
                     warmup=1, iters=6)
@@ -1177,7 +1173,7 @@ def phase_engine(dev, counters, n_requests=64) -> tuple[dict, dict]:
     tc0 = repro_torch.trace_count()
     res_e = ce.submit(few)
     check(repro_torch.trace_count() == tc0, "rerank left builds on the request path")
-    served_ok(res_e, ce, "engine after rerank")
+    check_top_tier(res_e, ce, "engine after rerank")
     emit({"phase": "engine", "part": "calibrate", "backend": fp,
           "points": fit.n_points, "fit_error_median": fit.error_median,
           "fit_error_max": fit.error_max, "bw_mult": fit.bw_mult,
@@ -1260,13 +1256,14 @@ def trace_summary(events, wall_s) -> dict:
 def phase_async(dev, counters, held) -> dict:
     """The async front-end (``repro_torch.runtime.AsyncEngine``) serving the
     engine phase's stream at full width on ``[cuda:0]``: (1) a blast,
-    bit-identical to the sync engine, under one profiler window; (2) the
-    same blast again, no build; a paced stream (p50 / p99); (3) a revived
-    front-end on the engine phase's store: ``precompile()``, then no mapper
-    search and no build; (4) admission: a malformed request rejected at
-    once, a capped queue shedding with ``retry_after_s``; (5) cora made
-    oversized through ``serve_partitioned``, bit-identical to the engine
-    phase's giant.  Returns the launches of (1)-(3) and (5)."""
+    bit-identical to the sync engine; (2) the same blast again, no build,
+    and once more under one profiler window; (3) a revived front-end on the
+    engine phase's store: ``precompile()``, then no mapper search and no
+    build; (4) admission: a malformed request rejected at once, a capped
+    queue shedding with ``retry_after_s``; (5) cora made oversized through
+    ``serve_partitioned``, bit-identical to the engine phase's giant.  The
+    paced stream (p50 / p99 against the window) is the async lane's
+    (``lanes``).  Returns the launches of (1)-(3) and (5)."""
     import repro_torch
     from repro_torch.core.schedule import ModelSchedule
     from repro_torch.runtime import AsyncEngine, ProgramStore, Request
@@ -1344,33 +1341,6 @@ def phase_async(dev, counters, held) -> dict:
                  "launches_first_blast": counts, "new_builds_second_blast": 0,
                  "bit_identical_to_sync": True, "trace": trace, "ok": True}
     emit(blast_rec)
-
-    # a paced stream: one request every 20 ms into 50 ms windows
-    gap_s, n_paced = 0.02, 32
-    # (twice: the second pass, with its shapes built, is reported)
-    eng = front(store=ProgramStore(store_dir), window_ms=50.0)
-    for _ in range(2):
-        n0 = len(eng.workers[0].engine._latencies)
-        walls0 = len(eng.workers[0].engine._batch_walls)
-        st0 = eng.stats()
-        futs = []
-        t0 = time.perf_counter()
-        for r in reqs[:n_paced]:
-            futs.append(eng.submit_async(r))
-            time.sleep(gap_s)
-        paced = [f.result() for f in futs]
-        wall = time.perf_counter() - t0
-        same_outputs(paced, sync[:n_paced], "async paced")
-    st = eng.stats()
-    lat_ms = np.asarray(eng.workers[0].engine._latencies[n0:]) * 1e3
-    eng.close()
-    emit({"phase": "async", "part": "paced", "requests": n_paced, "gap_s": gap_s,
-          "window_ms": 50.0, "p50_ms": float(np.percentile(lat_ms, 50)),
-          "p99_ms": float(np.percentile(lat_ms, 99)), "wall_s": wall,
-          "flushes_full": st.n_flushes_full - st0.n_flushes_full,
-          "flushes_deadline": st.n_flushes_deadline - st0.n_flushes_deadline,
-          "batch_walls_ms": [w * 1e3 for w in eng.workers[0].engine._batch_walls[walls0:]],
-          "bit_identical_to_sync": True, "ok": True})
 
     # (3) restart: a fresh front-end on the same store
     revived = front(store=ProgramStore(store_dir), window_ms=window_s * 1e3)
@@ -1523,6 +1493,100 @@ def phase_pp(dev, counters, held) -> dict:
         del want, got_k, got_e
     torch.cuda.empty_cache()
     print(f"pp phase wall {time.perf_counter() - t_phase:.3f} s", flush=True)
+    return launches
+
+
+def lane_record(name: str, rows, payload: dict, guards: list, wall_s: float) -> dict:
+    """One serving lane's line: its rows, each speed guard's value beside
+    its limit (read, not held: the lane's CLI enforces them), and the
+    kernels it launched."""
+    for g in guards:
+        limit = g.get("floor", g.get("ceiling"))
+        kind = "floor" if "floor" in g else "ceiling"
+        print(f"lanes {name}: {g['key']} {g['value']:.4g} against the {kind} "
+              f"{limit:g}: {'met' if g['met'] else 'MISSED'}", flush=True)
+    return {"phase": "lanes", "lane": name, "wall_s": wall_s,
+            "rows": [list(r) for r in rows],
+            "guards": [{k: v for k, v in g.items() if k != "message"} for g in guards],
+            "launches": payload.get("launches"), "ok": True}
+
+
+def phase_lanes(dev, counters) -> dict:
+    """The benchmark lanes and examples of the port (``repro_torch.bench``,
+    ``repro_torch.examples``) on the card: the plain serve lane at full
+    size (1000 requests, engine and naive), chaos, restart, async (two
+    workers on two streams of this card) and giant at their smoke sizes,
+    then quickstart, gnn_parallel_pipeline and serve_async.  Each lane
+    raises on its correctness guards (engine vs naive 1e-5, bit-identity
+    across chaos, restart, async and giant, typed statuses, no build warm,
+    no downgrade, no ``nvcc`` on revival); the serve and giant lanes also
+    hold the kernel tier against the eager tier (plain PyTorch, the same
+    weights) at ``TOL_PATH``: the serve lane's whole stream, every giant
+    graph.  The naive loops run the same kernels as the engines, so these
+    two holds are what compares a kernel with its plain version at the
+    lanes' shapes.  Speed ratios are printed beside their floors.  Returns
+    the phase's launches; spmm, fused_agg_cmb and gemm_dataflow must each
+    have launched."""
+    import io
+
+    from repro_torch.bench import serve_gnn
+    from repro_torch.examples import gnn_parallel_pipeline, quickstart, serve_async
+
+    check(serve_gnn.CLOSE_TOL == TOL_PATH,
+          f"lanes: the lanes hold at {serve_gnn.CLOSE_TOL}, not at {TOL_PATH}")
+    t_phase = time.perf_counter()
+    reset_counts(counters)
+    lanes = [("serve", lambda: serve_gnn.measure(smoke=False, device=dev)),
+             ("serve_chaos", lambda: serve_gnn.measure_chaos(smoke=True, device=dev)),
+             ("serve_restart", lambda: serve_gnn.measure_restart(smoke=True, device=dev)),
+             ("serve_async", lambda: serve_gnn.measure_async(smoke=True, device=dev)),
+             ("serve_giant", lambda: serve_gnn.measure_giant(smoke=True, device=dev))]
+    for name, fn in lanes:
+        t0 = time.perf_counter()
+        rows, payload, guards = fn()
+        rec = lane_record(name, rows, payload, guards, time.perf_counter() - t0)
+        if name in ("serve", "serve_giant"):
+            hold = payload["eager_hold"]
+            n_held = hold.get("n_requests", hold.get("n_graphs"))
+            stream = payload["stream"]
+            want = len(stream["sizes"]) if name == "serve_giant" else stream["n_requests"]
+            check(n_held == want, f"lanes {name}: the eager tier held {n_held} of {want}")
+            rec["kernel_vs_eager"] = hold
+            print(f"lanes {name}: kernel tier vs eager tier max |d| "
+                  f"{hold['max_abs_diff']:.3e} over {n_held} outputs "
+                  f"(rtol {TOL_PATH['rtol']:g}, atol {TOL_PATH['atol']:g})", flush=True)
+        if name == "serve_async":
+            rec["traffic_warmed_sync"] = tw = payload["traffic_warmed_sync"]
+            print(f"lanes serve_async: {payload['n_bit_identical']} bit-identical to "
+                  f"the precompiled sync engine; {tw['n_bit_identical']} to the "
+                  f"traffic-warmed one, max |d| {tw['max_abs_diff']:.3e}", flush=True)
+        if name == "serve":
+            eng = payload["engine"]
+            rec.update({k: eng[k] for k in ("graphs_per_sec", "p50_ms", "p99_ms",
+                                            "warm_graphs_per_sec", "n_downgrades")})
+            rec["naive_graphs_per_sec"] = payload["naive"]["graphs_per_sec"]
+            rec["parity_max_abs_diff"] = payload["parity_max_abs_diff"]
+            print(f"lanes serve: {eng['graphs_per_sec']:.1f} graphs/s cold pass, "
+                  f"{eng['warm_graphs_per_sec']:.1f} warm, p50 {eng['p50_ms']:.3f} ms, "
+                  f"p99 {eng['p99_ms']:.3f} ms; naive "
+                  f"{payload['naive']['graphs_per_sec']:.1f} graphs/s", flush=True)
+        emit(rec)
+    for mod in (quickstart, gnn_parallel_pipeline, serve_async):
+        name = mod.__name__.rsplit(".", 1)[1]
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            code = mod.main(["--device", str(dev)])
+        check(code == 0, f"lanes: example {name} returned {code}")
+        emit({"phase": "lanes", "example": name, "wall_s": time.perf_counter() - t0,
+              "tail": out.getvalue().strip().splitlines()[-3:], "ok": True})
+    sync(dev)
+    launches = {k: c.launches for k, c in counters.items()}
+    for k in ("spmm", "fused_agg_cmb", "gemm_dataflow"):
+        check(launches[k] > 0, f"lanes: {k} never launched ({launches})")
+    wall = time.perf_counter() - t_phase
+    emit({"phase": "lanes", "launches": launches, "wall_s": wall, "ok": True})
+    print(f"lanes phase wall {wall:.3f} s", flush=True)
     return launches
 
 
@@ -3557,8 +3621,8 @@ def phase_dryrun(dev, counters, procs) -> dict:
 def main() -> int:
     only = sys.argv[1:]
     if only not in ([], ["--only", "train"], ["--only", "lm_families"], ["--only", "sharded"],
-                    ["--only", "dryrun"]):
-        print("usage: python3 chip_smoke.py [--only train|lm_families|sharded|dryrun]",
+                    ["--only", "dryrun"], ["--only", "lanes"]):
+        print("usage: python3 chip_smoke.py [--only train|lm_families|sharded|dryrun|lanes]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -3586,6 +3650,13 @@ def main() -> int:
         phase_dryrun(dev, counters, start_dryrun())
         print(card_line(), flush=True)
         return 0
+    if only == ["--only", "lanes"]:  # the GNN kernels built together first
+        from repro_torch.kernels.common import build_libraries
+
+        build_libraries([spmm_ops.LIBRARY, fused_ops.LIBRARY, gemm_ops.LIBRARY])
+        phase_lanes(dev, counters)
+        print(card_line(), flush=True)
+        return 0
     if only:  # one phase alone, in a process nothing else ran in
         {"train": phase_train, "lm_families": phase_lm_families,
          "sharded": phase_sharded}[only[1]](dev, counters)
@@ -3606,6 +3677,7 @@ def main() -> int:
              phase_pp(dev, counters, held)]
     shutil.rmtree(held["store_dir"], ignore_errors=True)
     del held
+    runs.append(phase_lanes(dev, counters))
     runs.append(phase_train(dev, counters))
     runs += [phase_gemm(dev, counters), phase_lm_serve(dev, counters),
              phase_lm_families(dev, counters), phase_sharded(dev, counters),

@@ -36,3 +36,15 @@ def on_device(value, device: torch.device, name: str) -> torch.Tensor:
             )
         return value
     return torch.as_tensor(np.asarray(value), device=device)
+
+
+def worker_devices(device=None) -> list[torch.device]:
+    """The devices an async front-end's workers (or a two-group PP mesh)
+    spread over, ``device`` first: with two or more cards, ``device`` and
+    then every other card in index order; else two workers on ``device``
+    (two CUDA streams of one card, or two CPU workers)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and torch.cuda.device_count() >= 2:
+        return [dev] + [torch.device("cuda", i)
+                        for i in range(torch.cuda.device_count()) if i != dev.index]
+    return [dev, dev]

@@ -61,6 +61,15 @@ NVCC_FLAGS = (
 
 _LOCAL_INCLUDE = re.compile(r'\s*#\s*include\s+"([^"]+)"')
 
+_NVCC_STARTS = [0]  # one counter a process, behind its lock
+_NVCC_STARTS_LOCK = threading.Lock()
+
+
+def nvcc_starts() -> int:
+    """How many ``nvcc`` builds this process has started: a process whose
+    libraries are already in the build directory starts none."""
+    return _NVCC_STARTS[0]
+
 
 class CudaKernelError(RuntimeError):
     """A hand-written CUDA kernel failed to build (``nvcc`` missing or
@@ -264,6 +273,8 @@ class CudaLibrary:
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )
+        with _NVCC_STARTS_LOCK:
+            _NVCC_STARTS[0] += 1
         proc.tmp_path = tmp  # type: ignore[attr-defined]
         return proc
 

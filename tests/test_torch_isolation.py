@@ -1,7 +1,8 @@
-"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the port's
-profiler (``tools/collective_profile_torch.py``) import
-neither ``jax`` nor the reference package ``repro`` (not even its
-framework-free modules)."""
+"""The port stands alone: ``repro_torch`` (its benchmark lanes and examples
+included), ``chip_smoke.py`` and the port's profiler
+(``tools/collective_profile_torch.py``) import neither ``jax``, nor the
+reference package ``repro`` (not even its framework-free modules), nor the
+reference's benchmark lanes (``benchmarks``)."""
 import ast
 import subprocess
 import sys
@@ -12,7 +13,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
 PORT = SRC / "repro_torch"
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
 
 
 def test_import_pulls_in_no_jax_and_no_reference():
@@ -28,7 +29,12 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "repro_torch.models.xlstm, repro_torch.launch.analytic, "
         "repro_torch.models.sharding, repro_torch.launch.mesh, "
         "repro_torch.launch.specs, repro_torch.launch.dryrun, "
-        "repro_torch.launch.hlo, repro_torch.launch.roofline, repro_torch.models.loops\n"
+        "repro_torch.launch.hlo, repro_torch.launch.roofline, repro_torch.models.loops, "
+        "repro_torch.bench.run, repro_torch.examples.quickstart, "
+        "repro_torch.examples.dataflow_explorer, repro_torch.examples.dlrm_multiphase, "
+        "repro_torch.examples.gnn_parallel_pipeline, repro_torch.examples.serve_async, "
+        "repro_torch.examples.serve_lm, repro_torch.examples.train_lm, "
+        "repro_torch.examples.train_gnn_dataflow\n"
         "import repro_torch.configs.gcn_paper\n"
         "from repro_torch.configs import all_configs\n"
         "all_configs()\n"
