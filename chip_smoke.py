@@ -7,6 +7,7 @@ any failure.
     python3 chip_smoke.py --only sharded       # phase 12 alone (on 4 cards: also one process a card)
     python3 chip_smoke.py --only dryrun        # phase 13 alone
     python3 chip_smoke.py --only lanes         # phase 14 alone (the GNN kernels built first)
+    python3 chip_smoke.py --only captured      # phase 15 alone (every kernel built first)
 
 Phases, one JSON line each (no phase's error is caught):
 
@@ -179,9 +180,37 @@ Phases, one JSON line each (no phase's error is caught):
                 printed beside the lane's floor (read here, enforced by the
                 lane's CLI); spmm, fused_agg_cmb and gemm_dataflow must
                 each launch.
+15. captured  — run after ``engine``: ``Program.run`` and the LM's
+                ``decode_step`` as CUDA graphs (the port's ``jax.jit``;
+                ``repro_torch.capture``).  (a) cora GCN 1433 -> 16 -> 8
+                under seq/AC, sp_opt/AC and seq/CA on both tiers: two runs
+                (the first captures) against the uncaptured forward of the
+                same executable called directly, ``torch.equal`` on the
+                kernel tier (the eager tier is read: cuBLAS may choose
+                otherwise under capture; held at 2e-4), one capture, a
+                replay's launches equal to what its capture recorded, and
+                the replay's host wall beside the direct call's; (b) the
+                serving phase's reddit-bin batches under mean, max and sum
+                readouts, each replay ``torch.equal`` to its uncaptured
+                run, and a second batch of one bucket (its graphs in
+                reverse order, other features) through the same graph:
+                no capture, equal to its own uncaptured run, the first
+                batch's output untouched; (c) cora oversized through
+                ``serve_partitioned`` (each ``row_stream`` partition a
+                captured executable), bit-identical to the monolith's
+                uncaptured forward; (d) a reddit-bin engine served once,
+                revived on its store and precompiled (the captures; memory
+                reserved before and after), then the 64 requests with no
+                capture on the request path; (e) smollm-135m at full width
+                (4 x 1024, bf16): the prompt replayed through the captured
+                step and eagerly, the caches compared (bitwise count, held
+                at 2e-2), 32 greedy tokens from each and from
+                ``generate``, identical; the replay walls side by side.
+                A capture that fails fails the run: nothing falls back.
 
-Launch counts are set to 0 just before phases 3-14 (each part of the engine
-and async phases that serves the main path) and read just after;
+Launch counts are set to 0 just before phases 3-15 (each part of the engine,
+captured and async phases that serves the main path) and read just after; a
+replay of a captured graph counts the launches its capture recorded;
 the ``{"kernels": [...]}`` line reports them.  The last line is
 ``{"ok": true, "device": {...}}``; it is printed only when every phase
 passed.  Weights and data are random, made from fixed seeds.
@@ -1029,9 +1058,13 @@ def phase_engine(dev, counters, n_requests=64) -> tuple[dict, dict]:
     # (a) serve, then the same stream again
     eng = engine(store=ProgramStore(store_dir / "serve"))
     params = eng.init(torch.Generator().manual_seed(3))
+    reserved0 = torch.cuda.memory_reserved(dev)
+    tc_cold = repro_torch.trace_count()
     t0 = time.perf_counter()
     first, counts = count(lambda: eng.submit(reqs))
     cold_s = time.perf_counter() - t0
+    captures = repro_torch.trace_count() - tc_cold
+    reserved1 = torch.cuda.memory_reserved(dev)
     check(counts["fused_agg_cmb"] > 0 or counts["spmm"] > 0,
           f"engine serve launched no kernel: {counts}")
     check_top_tier(first, eng, "engine serve")
@@ -1048,9 +1081,11 @@ def phase_engine(dev, counters, n_requests=64) -> tuple[dict, dict]:
     eager_warm_s = time.perf_counter() - t0
     tc0 = repro_torch.trace_count()
     t0 = time.perf_counter()
-    again, _ = count(lambda: eng.submit(reqs))
+    again, again_counts = count(lambda: eng.submit(reqs))
     warm_s = time.perf_counter() - t0
     check(repro_torch.trace_count() == tc0, "the warm stream built executables")
+    check(again_counts["fused_agg_cmb"] + again_counts["spmm"] > 0,
+          f"the warm stream's replays counted no launch: {again_counts}")
     check_top_tier(again, eng, "engine serve again")
     same_outputs(again, first, "serve again")
     warm = eng.stats()
@@ -1064,7 +1099,9 @@ def phase_engine(dev, counters, n_requests=64) -> tuple[dict, dict]:
           "warm_batch_walls_ms": [w * 1e3 for w in walls[len(walls) // 2:]],
           "cold_batch_walls_ms": [w * 1e3 for w in walls[: len(walls) // 2]],
           "mapper_s": cold.search_s, "mapper_searches": cold.n_searches,
-          "build_s": cold.trace_s, "launches_first_pass": counts,
+          "build_s": cold.trace_s, "captures_first_pass": captures,
+          "memory_reserved_bytes_cold_pass": [reserved0, reserved1],
+          "launches_first_pass": counts, "launches_second_pass": again_counts,
           "new_builds_second_pass": 0, "second_pass_bit_identical": True,
           "max_abs_err_vs_solo": err_solo, "max_abs_err_vs_eager": err_eager,
           "eager_tier_warm_wall_s": eager_warm_s, "tol": TOL_PATH, "ok": True})
@@ -1185,6 +1222,315 @@ def phase_engine(dev, counters, n_requests=64) -> tuple[dict, dict]:
             "sync": first, "sync_warm_graphs_per_s": n_requests / warm_s,
             "giant": (cora, x, gdims, gparams, hw, gpol, giant_out)}
     return launches, held
+
+
+def only_executable(prog):
+    """The one executable of a Program's cache (a fresh Program, one shape
+    key)."""
+    (exe,) = prog._exec_cache.values()
+    return exe
+
+
+def compared(got, want) -> dict:
+    """Bitwise agreement and the largest difference of two tensors (or
+    lists of tensors)."""
+    pairs = list(zip(got, want)) if isinstance(got, (list, tuple)) else [(got, want)]
+    equal = sum(int((a == b).sum()) for a, b in pairs)
+    total = sum(a.numel() for a, _ in pairs)
+    worst = max(float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+                for a, b in pairs)
+    return {"bit_identical": equal == total, "elements_equal": equal, "elements": total,
+            "max_abs_diff": worst}
+
+
+def host_ms(fn, n=5) -> float:
+    """Median host wall of ``fn()`` in ms, each call ended by a
+    synchronise (one warm-up call first)."""
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(walls)
+
+
+def phase_captured(dev, counters, n_requests=64) -> dict:
+    """``Program.run`` and the LM's ``decode_step`` as CUDA graphs (see the
+    module docstring).  Returns the launches of the captured runs."""
+    import dataclasses
+
+    import repro_torch
+    from repro_torch.api import CapturedForward
+    from repro_torch.core.hw import DEFAULT_ACCEL
+    from repro_torch.core.schedule import ModelSchedule
+    from repro_torch.gnn import GNNConfig
+    from repro_torch.graphs import TABLE4, BucketPolicy, assemble, load_dataset, micro_batches
+    from repro_torch.runtime import InferenceEngine, ProgramStore, Request
+
+    t_phase = time.perf_counter()
+    launches = {k: 0 for k in counters}
+
+    def counted(fn):
+        reset_counts(counters)
+        out = fn()
+        sync(dev)
+        counts = {k: c.launches for k, c in counters.items()}
+        for k in launches:
+            launches[k] += counts[k]
+        return out, counts
+
+    # (a) cora, GCN 1433 -> 16 -> 8: each forced dataflow on both tiers;
+    # the replays against the uncaptured forward called directly
+    cora, _ = load_dataset("cora")
+    x = randn((cora.n_nodes, 1433), 20, dev)
+    params = None
+    for policy, order in (("seq", "AC"), ("sp_opt", "AC"), ("seq", "CA")):
+        for use_pallas in (True, False):
+            cfg = GNNConfig("gcn", f_in=1433, hidden=16, n_classes=8, use_pallas=use_pallas)
+            prog = repro_torch.compile(cfg, graph=cora, device=dev,
+                                       schedule=ModelSchedule.from_policies(policy, order,
+                                                                            cfg.dims))
+            if params is None:
+                params = prog.init(torch.Generator().manual_seed(5))
+            tc0 = repro_torch.trace_count()
+            first, first_counts = counted(lambda: prog.run(params, x))
+            again, replay_counts = counted(lambda: prog.run(params, x))
+            check(repro_torch.trace_count() == tc0 + 1, f"cora {policy}/{order}: "
+                  f"{repro_torch.trace_count() - tc0} captures, not 1")
+            exe = only_executable(prog)
+            check(isinstance(exe, CapturedForward) and exe.graph is not None,
+                  f"cora {policy}/{order}: the executable is not a CUDA graph")
+            direct = exe.eager(params, prog.adj.indices, prog.adj.weights, x, None)
+            sync(dev)
+            tally = exe.graph.launches
+            check(replay_counts == {k: tally.get(counters[k].__name__, 0) for k in counters},
+                  f"cora {policy}/{order}: a replay counted {replay_counts}, its capture "
+                  f"recorded {tally}")
+            held = compared([first, again], [direct, direct])
+            if use_pallas:
+                check(sum(tally.values()) > 0, f"cora {policy}/{order}: no kernel captured")
+                check(held["bit_identical"], f"cora {policy}/{order}: a replay differs from "
+                      f"the uncaptured kernel-tier forward ({held})")
+            else:
+                torch.testing.assert_close(first, direct, **TOL_PATH)
+            emit({"phase": "captured", "part": "cora", "dataflow": f"{policy}/{order}",
+                  "tier": "kernels" if use_pallas else "eager", "layers": tiers(prog),
+                  "replay_vs_direct": held, "launches_first_run": first_counts,
+                  "launches_a_replay": replay_counts, "captured_launches": tally,
+                  "replay_ms": host_ms(lambda: prog.run(params, x)),
+                  "direct_ms": host_ms(lambda: exe.eager(params, prog.adj.indices,
+                                                        prog.adj.weights, x, None)),
+                  "ok": True})
+
+    # (b) the serving phase's reddit-bin batches through each readout, and
+    # two batches of one shape through one graph
+    f_in = TABLE4["reddit-bin"].n_features
+    graphs = serving_graphs()
+    feats = [np.random.default_rng(3000 + i).normal(size=(g.n_nodes, f_in)).astype(np.float32)
+             for i, g in enumerate(graphs)]
+    cfg = GNNConfig("gcn", f_in=f_in, hidden=16, n_classes=8, use_pallas=True)
+    policy = BucketPolicy()
+    rparams, pair = None, None
+    worst = {}
+    n_batches = 0
+    for key, chunk, batch in micro_batches(graphs, policy):
+        prog = repro_torch.compile(cfg, graph=batch.graph, device=dev)
+        if rparams is None:
+            rparams = prog.init(torch.Generator().manual_seed(6))
+        prog = prog.bind(batch.graph, pad_degree=batch.d_bucket)
+        xb = torch.as_tensor(batch.batch_features([feats[i] for i in chunk]), device=dev)
+        seg = torch.as_tensor(batch.segment_ids, device=dev)
+        n_batches += 1
+        for readout in ("mean", "max", "sum"):
+            known = set(prog._exec_cache)
+            kw = dict(segment_ids=seg, num_segments=batch.slots, readout=readout)
+            out, _ = counted(lambda: prog.run(rparams, xb, **kw))
+            (new_key,) = set(prog._exec_cache) - known
+            exe = prog._exec_cache[new_key]
+            direct = exe.eager(rparams, prog.adj.indices, prog.adj.weights, xb, seg)
+            held = compared(out, direct)
+            check(held["bit_identical"], f"reddit-bin {list(key)} {readout}: the replay "
+                  f"differs from the uncaptured forward ({held})")
+            worst[readout] = max(worst.get(readout, 0.0), held["max_abs_diff"])
+            if readout == "mean" and len(chunk) > 1 and pair is None:
+                pair = (key, chunk, prog, exe, out)
+    check(pair is not None, "reddit-bin: no bucket holds two graphs")
+    key, chunk, prog_a, exe, out_a = pair
+    kept = out_a.clone()
+    batch_b = assemble([graphs[i] for i in reversed(chunk)], policy)
+    prog_b = prog_a.bind(batch_b.graph, pad_degree=batch_b.d_bucket)
+    xb = torch.as_tensor(batch_b.batch_features(
+        [np.random.default_rng(4000 + i).normal(size=(graphs[i].n_nodes, f_in))
+         .astype(np.float32) for i in reversed(chunk)]), device=dev)
+    seg_b = torch.as_tensor(batch_b.segment_ids, device=dev)
+    tc0 = repro_torch.trace_count()
+    out_b, _ = counted(lambda: prog_b.run(rparams, xb, segment_ids=seg_b,
+                                          num_segments=batch_b.slots, readout="mean"))
+    check(repro_torch.trace_count() == tc0, "a second batch of one shape was captured anew")
+    check(torch.equal(out_b, exe.eager(rparams, prog_b.adj.indices, prog_b.adj.weights, xb,
+                                       seg_b)), "the second batch differs from its own "
+          "uncaptured run")
+    check(torch.equal(out_a, kept), "the first batch's output changed under the next replay")
+    emit({"phase": "captured", "part": "reddit-bin batches", "batches": n_batches,
+          "readouts": list(worst),
+          "batches_bit_identical_to_uncaptured": True,
+          "two_batches_one_graph": {"bucket": list(key), "graphs": len(chunk),
+                                    "new_captures": 0, "each_equals_its_uncaptured_run": True,
+                                    "first_output_survives_the_next_replay": True},
+          "ok": True})
+
+    # (c) one graph through serve_partitioned (row_stream closures, each a
+    # captured executable) against the monolith's uncaptured forward
+    gdims = [(1433, 16), (16, 8)]
+    hw = dataclasses.replace(DEFAULT_ACCEL, gb_capacity_bytes=None)
+    sched = ModelSchedule.from_policies("sp_opt", "AC", gdims)
+    giant = InferenceEngine(gdims, None, use_pallas=True, readout=None, schedule=sched, hw=hw,
+                            objective="edp", policy=BucketPolicy(max_nodes=1024),
+                            partition_oversized=True, device=dev)
+    gparams = giant.init(torch.Generator().manual_seed(4))
+    xg = np.random.default_rng(44).normal(size=(cora.n_nodes, 1433)).astype(np.float32)
+    res, counts = counted(lambda: giant.serve_partitioned(Request(graph=cora, x=xg)))
+    check(res.status == "ok" and res.plan == "row_stream" and res.n_partitions > 1
+          and res.tier == "pallas+searched", f"captured giant: {res.status} {res.plan} "
+          f"{res.error}")
+    mono = repro_torch.compile(GNNConfig("gcn", 1433, 16, 8, use_pallas=True), graph=cora,
+                               schedule=sched, device=dev)
+    mono.run(gparams, xg)
+    exe = only_executable(mono)
+    direct = exe.eager(gparams, mono.adj.indices, mono.adj.weights,
+                       torch.as_tensor(xg, device=dev), None).cpu().numpy()
+    same = bool(np.array_equal(res.output, direct))
+    check(same, "serve_partitioned's captured partitions differ from the monolith's "
+                f"uncaptured forward by {float(np.abs(res.output - direct).max())}")
+    emit({"phase": "captured", "part": "serve_partitioned", "graph": "cora",
+          "n_partitions": res.n_partitions, "launches": counts,
+          "bit_identical_to_uncaptured_monolith": True, "ok": True})
+
+    # (d) a warm engine: served once, revived on its store, precompiled
+    # (the captures), then the stream again with no capture
+    store_dir = Path(__file__).resolve().parent / "build" / "captured_store"
+    shutil.rmtree(store_dir, ignore_errors=True)
+    dims = [(f_in, 16), (16, 8)]
+    reqs = reddit_requests(n_requests, f_in, seed=2)
+    eng = InferenceEngine(dims, None, use_pallas=True, readout="mean", device=dev,
+                          store=ProgramStore(store_dir))
+    eparams = eng.init(torch.Generator().manual_seed(3))
+    first = eng.submit(reqs)
+    del eng
+    gc.collect()
+    sync(dev)
+    torch.cuda.empty_cache()  # the first engine's graphs released
+    rev = InferenceEngine(dims, eparams, use_pallas=True, readout="mean", device=dev,
+                          store=ProgramStore(store_dir))
+    reserved0, allocated0 = torch.cuda.memory_reserved(dev), torch.cuda.memory_allocated(dev)
+    tc0 = repro_torch.trace_count()
+    rep = rev.precompile()
+    sync(dev)
+    reserved1, allocated1 = torch.cuda.memory_reserved(dev), torch.cuda.memory_allocated(dev)
+    captures = repro_torch.trace_count() - tc0
+    check(rep.n_searches == 0 and captures > 0, f"revived precompile: {rep.as_dict()}")
+    tc0 = repro_torch.trace_count()
+    t0 = time.perf_counter()
+    warm, counts = counted(lambda: rev.submit(reqs))
+    warm_s = time.perf_counter() - t0
+    check(repro_torch.trace_count() == tc0, "the warm engine captured on the request path")
+    check(counts["fused_agg_cmb"] + counts["spmm"] > 0, f"warm engine launched {counts}")
+    check(all(r.status == "ok" for r in warm), "warm engine: a request was not ok")
+    n_same = sum(bool(np.array_equal(a.output, b.output)) for a, b in zip(warm, first))
+    worst_engine = max(float(np.abs(a.output - b.output).max()) for a, b in zip(warm, first))
+    check(worst_engine <= TOL_PATH["atol"], f"warm engine vs its first pass {worst_engine}")
+    emit({"phase": "captured", "part": "warm engine", "requests": n_requests,
+          "precompile": rep.as_dict(), "captures": captures,
+          "memory_reserved_bytes": [reserved0, reserved1],
+          "graphs_reserved_bytes": reserved1 - reserved0,
+          "graphs_allocated_bytes": allocated1 - allocated0,
+          "request_path_captures": 0, "warm_wall_s": warm_s,
+          "warm_graphs_per_s": n_requests / warm_s, "launches": counts,
+          "bit_identical_to_first_pass": n_same, "max_abs_diff_vs_first_pass": worst_engine,
+          "ok": True})
+    shutil.rmtree(store_dir, ignore_errors=True)
+    del rev, giant, mono, exe
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"captured phase GNN part wall {time.perf_counter() - t_phase:.3f} s", flush=True)
+    phase_captured_lm(dev)
+    print(f"captured phase wall {time.perf_counter() - t_phase:.3f} s", flush=True)
+    return launches
+
+
+def phase_captured_lm(dev, batch=4, prompt_len=1024, new_tokens=32) -> None:
+    """smollm-135m at full width: the prompt replayed through the captured
+    ``decode_step`` (``models.transformer.decoder``, as ``prefill`` and
+    ``generate`` replay it) against the same replay run eagerly, then
+    greedy tokens from each cache and from ``generate``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import decode_step, forward, init_cache, init_params, make_inputs
+    from repro_torch.models.transformer import captures_decode, decoder
+    from repro_torch.tree import leaves
+
+    cfg = get_config("smollm-135m")
+    check(captures_decode(cfg, dev), "smollm-135m does not decode captured")
+    params = init_params(cfg, torch.Generator().manual_seed(0), dev)
+    prompts = make_inputs(cfg, batch, prompt_len, seed=0, device=dev)
+    logits, _ = forward(cfg, params, prompts)
+    first_tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+    del logits
+    length = prompt_len + new_tokens
+
+    captured = init_cache(cfg, batch, length, dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    step = decoder(cfg, params, captured, prompts[:, :1])
+    sync(dev)
+    capture_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for t in range(prompt_len):
+        step(prompts[:, t:t + 1], t)
+    sync(dev)
+    replay_s = time.perf_counter() - t0
+
+    eager = init_cache(cfg, batch, length, dev)
+    t0 = time.perf_counter()
+    for t in range(prompt_len):
+        decode_step(cfg, params, eager, prompts[:, t:t + 1], t)
+    sync(dev)
+    eager_replay_s = time.perf_counter() - t0
+    cache_cmp = compared(leaves(captured), leaves(eager))
+    for a, b in zip(leaves(captured), leaves(eager)):
+        torch.testing.assert_close(a, b, **TOL_BF16)
+
+    def greedy(run):
+        tok, toks, walls = first_tok, [], []
+        for i in range(new_tokens):
+            t0 = time.perf_counter()
+            logits = run(tok, prompt_len + i)
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+            toks.append(tok)
+            sync(dev)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return torch.cat(toks, dim=1), walls
+
+    toks_c, ms_c = greedy(step)
+    toks_e, ms_e = greedy(lambda tok, i: decode_step(cfg, params, eager, tok, i)[0])
+    timings = {}
+    toks_g, _ = generate(cfg, params, prompts, new_tokens, timings=timings)
+    check(torch.equal(toks_c, toks_e), "captured and eager greedy tokens differ")
+    check(torch.equal(toks_g, toks_e), "generate's greedy tokens differ from the eager decode")
+    emit({"phase": "captured", "part": "lm replay", "arch": cfg.name, "batch": batch,
+          "prompt_len": prompt_len, "new_tokens": new_tokens, "capture_s": capture_s,
+          "replay_s": replay_s, "eager_replay_s": eager_replay_s,
+          "replay_speedup": eager_replay_s / replay_s, "cache_vs_eager": cache_cmp,
+          "tol": TOL_BF16, "decode_step_ms_median": statistics.median(ms_c),
+          "eager_decode_step_ms_median": statistics.median(ms_e),
+          "greedy_tokens_identical": True, "generate_tokens_identical": True,
+          "generate_timings": timings, "ok": True})
+    del captured, eager, step, params
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 PROFILED_WINDOWS = [0]  # torch.profiler windows opened in this process
@@ -1534,8 +1880,11 @@ def phase_lanes(dev, counters) -> dict:
 
     check(serve_gnn.CLOSE_TOL == TOL_PATH,
           f"lanes: the lanes hold at {serve_gnn.CLOSE_TOL}, not at {TOL_PATH}")
+    import repro_torch
+
     t_phase = time.perf_counter()
     reset_counts(counters)
+    tc0 = repro_torch.trace_count()
     lanes = [("serve", lambda: serve_gnn.measure(smoke=False, device=dev)),
              ("serve_chaos", lambda: serve_gnn.measure_chaos(smoke=True, device=dev)),
              ("serve_restart", lambda: serve_gnn.measure_restart(smoke=True, device=dev)),
@@ -1585,7 +1934,8 @@ def phase_lanes(dev, counters) -> dict:
     for k in ("spmm", "fused_agg_cmb", "gemm_dataflow"):
         check(launches[k] > 0, f"lanes: {k} never launched ({launches})")
     wall = time.perf_counter() - t_phase
-    emit({"phase": "lanes", "launches": launches, "wall_s": wall, "ok": True})
+    emit({"phase": "lanes", "launches": launches, "wall_s": wall,
+          "captures": repro_torch.trace_count() - tc0, "ok": True})
     print(f"lanes phase wall {wall:.3f} s", flush=True)
     return launches
 
@@ -2051,8 +2401,10 @@ def phase_lm_serve(dev, counters, batch=4, prompt_len=1024, new_tokens=32) -> di
     from repro_torch.kernels.common import measure_wall
     from repro_torch.launch.serve import generate
     from repro_torch.models import forward, init_params, make_inputs
+    from repro_torch.models.transformer import captures_decode
 
     cfg = get_config("smollm-135m")
+    check(captures_decode(cfg, dev), "smollm-135m does not decode captured")
     params = init_params(cfg, torch.Generator().manual_seed(0), dev)
     prompts = make_inputs(cfg, batch, prompt_len, seed=0, device=dev)
     reset_counts(counters)
@@ -2102,7 +2454,7 @@ def phase_lm_serve(dev, counters, batch=4, prompt_len=1024, new_tokens=32) -> di
           "prefill_forward_ms_median": prefill_ms,
           "decode_s": timings["decode_s"],
           "decode_step_ms_median": statistics.median(lat) * 1e3,
-          "launches": launches,
+          "decode_captured": True, "launches": launches,
           "bf16_logits_rel_l2_vs_plain": rel_l2,
           "bf16_logits_max_abs_err_vs_plain": max_bf16,
           "bf16_greedy_tokens_agree": agree,
@@ -2177,6 +2529,7 @@ def phase_lm_families(dev, counters, batch=2, prompt_len=128, new_tokens=8) -> d
     from repro_torch.launch.analytic import cell_flops
     from repro_torch.launch.serve import generate
     from repro_torch.models import count_params, forward, init_params, make_inputs
+    from repro_torch.models.transformer import captures_decode
     from repro_torch.tree import tree_map
 
     t_phase = time.perf_counter()
@@ -2241,6 +2594,7 @@ def phase_lm_families(dev, counters, batch=2, prompt_len=128, new_tokens=8) -> d
                "decode_bound_ms_param_bytes": decode_bound_ms,
                "decode_over_bound": decode_ms / decode_bound_ms,
                "launches": counts, "aux_loss": float(aux),
+               "decode_captured": captures_decode(cfg, dev),
                "prefill_logits_rel_l2_vs_plain": prefill_err,
                "decode_vs_prefill_rel_l2": decode_err, "rel_l2_limit": LM_BF16_REL_L2,
                "f32_decode_rel_l2_limit": decode_limit}
@@ -3621,9 +3975,9 @@ def phase_dryrun(dev, counters, procs) -> dict:
 def main() -> int:
     only = sys.argv[1:]
     if only not in ([], ["--only", "train"], ["--only", "lm_families"], ["--only", "sharded"],
-                    ["--only", "dryrun"], ["--only", "lanes"]):
-        print("usage: python3 chip_smoke.py [--only train|lm_families|sharded|dryrun|lanes]",
-              file=sys.stderr)
+                    ["--only", "dryrun"], ["--only", "lanes"], ["--only", "captured"]):
+        print("usage: python3 chip_smoke.py "
+              "[--only train|lm_families|sharded|dryrun|lanes|captured]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3650,6 +4004,14 @@ def main() -> int:
         phase_dryrun(dev, counters, start_dryrun())
         print(card_line(), flush=True)
         return 0
+    if only == ["--only", "captured"]:  # every kernel built together first
+        from repro_torch.kernels.common import build_libraries
+
+        build_libraries([spmm_ops.LIBRARY, fused_ops.LIBRARY, flash_ops.LIBRARY,
+                         gemm_ops.LIBRARY])
+        phase_captured(dev, counters)
+        print(card_line(), flush=True)
+        return 0
     if only == ["--only", "lanes"]:  # the GNN kernels built together first
         from repro_torch.kernels.common import build_libraries
 
@@ -3673,7 +4035,7 @@ def main() -> int:
     launches = phase_main(dev, counters)
     runs = [phase_serving(dev, counters)]
     engine_launches, held = phase_engine(dev, counters)
-    runs += [engine_launches, phase_async(dev, counters, held),
+    runs += [engine_launches, phase_captured(dev, counters), phase_async(dev, counters, held),
              phase_pp(dev, counters, held)]
     shutil.rmtree(held["store_dir"], ignore_errors=True)
     del held

@@ -39,6 +39,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from .capture import CapturedGraph
 from .core.cost_model import GNNLayerWorkload
 from .core.hw import AcceleratorConfig, DEFAULT_ACCEL, HWGrid, LatencyModel
 from .core.mapper import TABLE5_NAMES, search_model, search_model_codesign
@@ -65,11 +66,12 @@ from .graphs.csr import CSRGraph
 #: persisted store entry without ever crashing a serving process.
 PROGRAM_FORMAT = "repro.program/v1"
 
-#: total number of executables built by Programs, process-wide.  The port
-#: runs eagerly, so a "trace" is the first build of an ``_exec_cache``
-#: entry for one shape key; a second run on a same-shape input (or a
-#: same-shape rebind) must leave this counter unchanged — the reference's
-#: zero-retrace contract, which the serving engine asserts.
+#: total number of executables built by Programs, process-wide.  A "trace"
+#: is the first build of an ``_exec_cache`` entry for one shape key: on a
+#: CUDA device its CUDA-graph capture, on the CPU (and over a mesh) its
+#: uncaptured closure; a second run on a same-shape input (or a same-shape
+#: rebind) must leave this counter unchanged — the reference's zero-retrace
+#: contract, which the serving engine asserts.
 _TRACE_COUNT = 0
 
 
@@ -134,6 +136,38 @@ def _stats_from_dict(d: dict) -> ModelStats:
 # ---------------------------------------------------------------------------
 # Program
 # ---------------------------------------------------------------------------
+
+
+class CapturedForward:
+    """A Program's executable on a CUDA device: its uncaptured forward
+    (``eager``) captured as a :class:`~repro_torch.capture.CapturedGraph`
+    on the first call, over static copies of the adjacency, the features,
+    the segment ids and every parameter, and replayed by each later call.
+    The parameters are copied in on every call, so a run after an in-place
+    update (or with other weights of the same shapes) computes with the
+    values it is given."""
+
+    def __init__(self, eager):
+        self.eager = eager
+        self.graph: CapturedGraph | None = None
+
+    def __call__(self, params, indices, weights, x, segment_ids):
+        names = [sorted(layer) for layer in params]
+        flat = [indices, weights, x]
+        if segment_ids is not None:
+            flat.append(segment_ids)
+        flat += [layer[k] for layer, ks in zip(params, names) for k in ks]
+        if self.graph is None:
+            batched = segment_ids is not None
+
+            def fn(indices, weights, x, *rest):
+                seg, leaves = (rest[0], rest[1:]) if batched else (None, rest)
+                it = iter(leaves)
+                ps = [{k: next(it) for k in ks} for ks in names]
+                return self.eager(ps, indices, weights, x, seg)
+
+            self.graph = CapturedGraph(fn, flat)
+        return self.graph(*flat)
 
 
 @dataclass(frozen=True)
@@ -251,13 +285,13 @@ class Program:
             for fi, fo in self.dims
         ]
 
-    def _build(self, n_nodes: int, mesh, readout, num_segments):
-        """A forward for one shape key (counted by :func:`trace_count`).
-        It resolves each layer's registry kernel now, once: a kernel hook
-        pushed later (:func:`repro_torch.runtime.faults.kill_pallas`)
-        reaches only executables built after it, as a backend outage
-        reaches only the reference's executables traced after it."""
-        _note_trace()
+    def _forward(self, n_nodes: int, mesh, readout, num_segments):
+        """The uncaptured forward of one shape key: a closure over
+        ``(params, indices, weights, x, segment_ids)``.  It resolves each
+        layer's registry kernel now, once: a kernel hook pushed later
+        (:func:`repro_torch.runtime.faults.kill_pallas`) reaches only
+        executables built after it, as a backend outage reaches only the
+        reference's executables traced after it."""
         kind, specs = self.kind, self.specs
         kernels = [
             lookup_kernel(s.policy, s.order, s.use_pallas) for s in specs
@@ -274,6 +308,19 @@ class Program:
             )
 
         return exe
+
+    def _build(self, n_nodes: int, mesh, readout, num_segments, device):
+        """The executable of one shape key (counted by :func:`trace_count`):
+        on a CUDA device without a mesh, :meth:`_forward` captured as a
+        CUDA graph on its first call (:class:`CapturedForward`), the
+        counterpart of the reference's ``jax.jit``; on the CPU, or over a
+        mesh (the two-stream and two-card Parallel Pipeline), the
+        uncaptured forward itself."""
+        _note_trace()
+        fwd = self._forward(n_nodes, mesh, readout, num_segments)
+        if device.type == "cuda" and mesh is None:
+            return CapturedForward(fwd)
+        return fwd
 
     def run(
         self,
@@ -299,9 +346,14 @@ class Program:
         graph's device); a tensor, parameters included, must already be on
         that device.  Executables are cached per shape key: the
         second call on a same-shape input (including a same-shape
-        :meth:`bind`) builds nothing (see :func:`trace_count`).  An
-        executable whose first run raises is not kept (the reference keeps
-        no executable for a failed trace): the next run builds it again.
+        :meth:`bind`) builds nothing (see :func:`trace_count`).  On a CUDA
+        device without a mesh an executable is a CUDA graph, captured on
+        its first run and replayed by every later one (the inputs and
+        parameters are copied into its static buffers on each run, and the
+        result copied out, so it is the caller's); on the CPU, and over a
+        mesh, it runs uncaptured.  An executable whose first run raises is
+        not kept (the reference keeps no executable for a failed trace):
+        the next run builds it again.
 
         ``donate`` gives the feature tensor ``x`` to the run, as the
         reference donates the feature buffer: once the forward is
@@ -356,7 +408,7 @@ class Program:
         exe = self._exec_cache.get(key)
         fresh = exe is None
         if fresh:
-            exe = self._build(adj.n_nodes, mesh, readout, num_segments)
+            exe = self._build(adj.n_nodes, mesh, readout, num_segments, dev)
         out = exe(params, adj.indices, adj.weights, x, segment_ids)
         if fresh:  # kept only once it has run
             self._exec_cache[key] = exe
@@ -379,7 +431,9 @@ class Program:
         graph's shape (same static knobs, ``donate`` included, so the
         executable is the exact one a later same-shape request will hit)
         and returns how many new executables it built — 0 when the shape
-        was already warm.
+        was already warm.  On a CUDA device that builds by capturing the
+        shape's CUDA graph; it then waits for its own stream only (a whole
+        device synchronise would break another thread's capture).
         """
         adj = self._require_adj()
         x = torch.zeros(
@@ -397,7 +451,7 @@ class Program:
             donate=donate,
         )
         if adj.indices.device.type == "cuda":
-            torch.cuda.synchronize(adj.indices.device)
+            torch.cuda.current_stream(adj.indices.device).synchronize()
         return _TRACE_COUNT - before
 
     def loss(self, params, x, labels, mask, mesh=None):

@@ -370,19 +370,26 @@ def _segment_sum(h, ids, valid, num_segments: int) -> torch.Tensor:
     count or where the segment sits in it.  (``index_add_`` on the card
     sums with atomics, in an order that changes from run to run.)  Every
     step is an elementwise add, deterministic on any device.
+
+    Every shape is static: each tree is as wide as ``h`` has rows, rounded
+    up to a power of two (the widest a segment can be), whatever the
+    segments hold, so nothing is read back to the host and a CUDA graph
+    can capture the readout.  The rows are sorted by segment (stably, so
+    each keeps its row order), invalid rows last in a segment of their own
+    that is dropped.
     """
-    f = h.shape[1]
-    rows = torch.nonzero(valid).flatten()
-    seg = ids[rows]
-    order = torch.sort(seg, stable=True).indices
-    rows, seg = rows[order], seg[order]
-    counts = torch.bincount(seg, minlength=num_segments)
+    n, f = h.shape
+    width = 1 << max(n - 1, 0).bit_length()
+    key = torch.where(valid, ids, num_segments)
+    order = torch.sort(key, stable=True).indices
+    seg = key[order]
+    counts = torch.zeros(num_segments + 1, dtype=torch.long, device=h.device)
+    counts.scatter_add_(0, key, torch.ones_like(key))
     starts = torch.cumsum(counts, 0) - counts
-    pos = torch.arange(rows.numel(), device=h.device) - starts[seg]
-    width = 1 << max(int(counts.max().item()) - 1, 0).bit_length() \
-        if rows.numel() else 1
-    tree = torch.zeros((num_segments, width, f), dtype=h.dtype, device=h.device)
-    tree[seg, pos] = h[rows]
+    pos = torch.arange(n, device=h.device) - starts[seg]
+    tree = torch.zeros(((num_segments + 1) * width, f), dtype=h.dtype, device=h.device)
+    tree.index_copy_(0, seg * width + pos, h[order])
+    tree = tree.view(num_segments + 1, width, f)[:num_segments]
     while tree.shape[1] > 1:
         tree = tree[:, 0::2] + tree[:, 1::2]
     return tree[:, 0]

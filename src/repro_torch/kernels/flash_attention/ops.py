@@ -27,7 +27,7 @@ import torch
 
 from torch.utils.flop_counter import register_flop_formula
 
-from ..common import DTYPE_CODES, CudaLibrary, refuse_grad
+from ..common import DTYPE_CODES, CudaLibrary, count_launch, refuse_grad
 from .ref import attend_chunked, flash_attention_ref
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -111,7 +111,7 @@ def _launch(q, k, v, out, q_pos, k_pos, causal: bool, window: int):
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     LIBRARY.check(code, "flash_attention launch")
-    flash_attention.launches += 1
+    count_launch(flash_attention)
     return out
 
 

@@ -11,7 +11,7 @@ from pathlib import Path
 
 import torch
 
-from ..common import DTYPE_CODES, CudaLibrary, check_operands, refuse_grad
+from ..common import DTYPE_CODES, CudaLibrary, check_operands, count_launch, refuse_grad
 from .ref import fused_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -60,7 +60,7 @@ def fused_agg_cmb(indices, weights, x, w, band_size=128, block_f=None):
             DTYPE_CODES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
         )
     LIBRARY.check(code, "fused_agg_cmb launch")
-    fused_agg_cmb.launches += 1
+    count_launch(fused_agg_cmb)
     return out
 
 

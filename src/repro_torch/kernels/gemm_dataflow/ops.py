@@ -20,7 +20,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..common import DTYPE_CODES, CudaLibrary, cdiv, refuse_grad
+from ..common import DTYPE_CODES, CudaLibrary, cdiv, count_launch, refuse_grad
 from .ref import gemm_ref
 
 DATAFLOWS = ("output_stationary", "weight_stationary", "input_stationary")
@@ -140,7 +140,7 @@ def gemm(x, w, dataflow="output_stationary", block_v=128, block_g=128,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     LIBRARY.check(code, "gemm_dataflow launch")
-    gemm.launches += 1
+    count_launch(gemm)
     return out
 
 

@@ -13,7 +13,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..common import DTYPE_CODES, CudaLibrary, check_operands, refuse_grad
+from ..common import DTYPE_CODES, CudaLibrary, check_operands, count_launch, refuse_grad
 from .ref import spmm_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -57,7 +57,7 @@ def spmm(indices, weights, x, block_v=128, block_f=128):
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     LIBRARY.check(code, "spmm_ell launch")
-    spmm.launches += 1
+    count_launch(spmm)
     return out
 
 

@@ -8,7 +8,10 @@ On the CPU, at smoke scale:
 
 The prefill ``forward`` runs each layer's attention through the
 flash-attention kernel on a CUDA device; decode attention is plain
-PyTorch, as in the reference.
+PyTorch, as in the reference.  On a card the prompt replay and the
+per-token steps replay one captured ``decode_step`` (a CUDA graph, for an
+arch without MoE blocks: ``models.transformer.decoder``), as the reference
+jits it; the prefill ``forward``, sampling and the argmax run uncaptured.
 """
 from __future__ import annotations
 
@@ -20,8 +23,9 @@ import torch
 
 from ..configs import ARCH_IDS, get_config
 from ..device import resolve_device
-from ..models import decode_step, forward, init_cache, init_params, make_inputs
+from ..models import forward, init_cache, init_params, make_inputs
 from ..models.layers import torch_dtype
+from ..models.transformer import decoder
 
 
 def _sync(device: torch.device) -> None:
@@ -53,9 +57,12 @@ def generate(cfg, params, prompts, new_tokens: int, greedy: bool = True,
     _sync(dev)
     t1 = time.perf_counter()
     cache = init_cache(cfg, b, s + new_tokens, dev)
-    # replay the prompt through decode steps to build the cache
+    # replay the prompt through decode steps to build the cache: one
+    # captured step on a card (models.transformer.decoder), as the
+    # reference jits decode_step
+    step = decoder(cfg, params, cache, prompts[:, :1])
     for t in range(s):
-        _, cache = decode_step(cfg, params, cache, prompts[:, t:t + 1], t)
+        step(prompts[:, t:t + 1], t)
     _sync(dev)
     t2 = time.perf_counter()
 
@@ -74,7 +81,7 @@ def generate(cfg, params, prompts, new_tokens: int, greedy: bool = True,
     for i in range(new_tokens):
         ts = time.perf_counter()
         tok_in = table[next_tok[:, 0] % 64][:, None] if table is not None else next_tok
-        logits, cache = decode_step(cfg, params, cache, tok_in, s + i)
+        logits = step(tok_in, s + i)
         if greedy:
             next_tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
         else:

@@ -231,7 +231,7 @@ def decode_attention(
     p: dict,
     x: torch.Tensor,  # (B, 1, d)
     cache: KVCache,
-    cur_index: int,  # absolute position of this token
+    cur_index,  # absolute position of this token: an int or a 0-d int tensor
     *,
     window: int = 0,
 ) -> tuple[torch.Tensor, KVCache]:
@@ -239,14 +239,25 @@ def decode_attention(
 
     Unlike the reference, which returns a new cache, this writes the new
     key and value into ``cache``'s tensors in place and returns the same
-    cache (a whole-cache copy per token would dominate decode)."""
+    cache (a whole-cache copy per token would dominate decode).
+
+    ``cur_index`` may be a 0-d integer tensor on the device: the slot, the
+    mask of live slots and the write are then computed on the device, with
+    nothing read back to the host, so a CUDA graph can capture the step
+    and replay it at every position.  Both forms give the same bits.  The
+    sequence-sharded cache (``_decode_over_slots``) reads it on the host."""
     b = x.shape[0]
-    cur_index = int(cur_index)
-    positions = torch.full((b, 1), cur_index, dtype=torch.int32, device=x.device)
-    q, k_new, v_new = _project_qkv(cfg, p, x, positions)
     size = cache.k.shape[1]
-    slot = cur_index % size if window > 0 else cur_index
     seq_dim = _sequence_dim(cache.k)
+    on_device = isinstance(cur_index, torch.Tensor) and seq_dim is None
+    if on_device:
+        cur_index = cur_index.reshape(()).to(device=x.device, dtype=torch.int64)
+        positions = cur_index.to(torch.int32).expand(b, 1)
+    else:
+        cur_index = int(cur_index)
+        positions = torch.full((b, 1), cur_index, dtype=torch.int32, device=x.device)
+    q, k_new, v_new = _project_qkv(cfg, p, x, positions)
+    slot = cur_index % size if window > 0 else cur_index
     if seq_dim is not None:
         out = _decode_over_slots(cfg, q, k_new, v_new, cache, cur_index, slot, window,
                                  seq_dim)
@@ -260,8 +271,12 @@ def decode_attention(
     def attend_cache(q, k_new, v_new, ck, cv):
         # this rank's batch rows and heads; the slot is written in place
         # into the cache's own storage
-        ck[:, slot] = k_new[:, 0]
-        cv[:, slot] = v_new[:, 0]
+        if on_device:
+            ck.index_copy_(1, slot.reshape(1), k_new.to(ck.dtype))
+            cv.index_copy_(1, slot.reshape(1), v_new.to(cv.dtype))
+        else:
+            ck[:, slot] = k_new[:, 0]
+            cv[:, slot] = v_new[:, 0]
         qg = _group(q, ck.shape[2]).float() / np.sqrt(cfg.head_dim)
         s = torch.einsum("bqhgd,bkhd->bhgqk", qg, ck.float())
         s = torch.where(live, s, NEG_INF)
@@ -274,9 +289,10 @@ def decode_attention(
     return shard(out.reshape(b, 1, -1) @ wo, "batch", None, None), cache
 
 
-def _live_slots(slots, size: int, slot: int, cur_index: int, window: int):
+def _live_slots(slots, size: int, slot, cur_index, window: int):
     """Which cache ``slots`` (global slot numbers) hold a position this
-    token attends, shaped to mask (B, H, G, 1, slots) scores."""
+    token attends, shaped to mask (B, H, G, 1, slots) scores; ``slot`` and
+    ``cur_index`` are ints or 0-d tensors."""
     if window > 0:
         # ring buffer: slot s holds the most recent position p with
         # p % size == s and p <= cur_index

@@ -23,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..capture import CapturedGraph
 from ..device import resolve_device
 from ..tree import leaves
 from .attention import (
@@ -44,7 +45,7 @@ from .layers import (
     torch_dtype,
 )
 from .moe import init_moe, moe_ffn
-from .sharding import shard, to_dtensor
+from .sharding import current_mesh, shard, to_dtensor
 from .rglru import RGLRUState, init_rglru, rglru_block, rglru_decode
 from .xlstm import (
     MLSTMState,
@@ -344,15 +345,48 @@ def decode_step(cfg: ArchConfig, params: dict, cache, tokens: torch.Tensor, inde
     return logits_head(cfg, params["embeddings"], h), cache
 
 
+def captures_decode(cfg: ArchConfig, device) -> bool:
+    """Whether :func:`decoder` captures ``decode_step`` as a CUDA graph: on
+    a CUDA device, without a mesh, for an arch with no MoE block.  The MoE
+    reads its expert counts on the host once a layer (``moe_ragged``), so
+    an arch with one decodes uncaptured, as does the mesh path (DTensor
+    states, the sequence-sharded cache).  A static rule on the arch and the
+    device, not a fallback: a capture that fails raises."""
+    return (torch.device(device).type == "cuda" and "moe" not in cfg.layer_kinds
+            and current_mesh() is None)
+
+
+def decoder(cfg: ArchConfig, params: dict, cache, tokens: torch.Tensor):
+    """:func:`decode_step` over ``cache`` as a function ``step(tokens,
+    index) -> logits`` for tokens shaped like ``tokens`` (and of its dtype,
+    or one that casts to the model's dtype alike).
+
+    Where :func:`captures_decode` holds, the step is captured once as a
+    CUDA graph over static buffers for the token and the position (a 0-d
+    device tensor) and replayed at every position: the counterpart of the
+    reference's jitted ``decode_step``, one per (arch, batch, cache length,
+    dtype, token shape), made once per :func:`prefill` or ``generate`` as
+    the reference makes its jitted step once per call.  The graph reads
+    the parameters and writes ``cache`` in place; its warm-up run's writes
+    to the cache are undone.  Elsewhere ``decode_step`` runs uncaptured."""
+    if not captures_decode(cfg, tokens.device):
+        return lambda tok, index: decode_step(cfg, params, cache, tok, index)[0]
+    index = torch.zeros((), dtype=torch.int64, device=tokens.device)
+    return CapturedGraph(lambda tok, i: decode_step(cfg, params, cache, tok, i)[0],
+                         [tokens, index], mutated=leaves(cache))
+
+
 def prefill(cfg: ArchConfig, params: dict, inputs: torch.Tensor, *,
             use_kernels: bool = True):
     """Prefill: the full forward for the logits, then the decode cache built
-    by replaying each prompt position through :func:`decode_step`."""
+    by replaying each prompt position through :func:`decode_step` (its
+    captured graph on a card, see :func:`decoder`)."""
     b, s = inputs.shape[:2]
     logits, _ = forward(cfg, params, inputs, use_kernels=use_kernels)
     cache = init_cache(cfg, b, s, inputs.device)
+    step = decoder(cfg, params, cache, inputs[:, :1])
     for i in range(s):
-        _, cache = decode_step(cfg, params, cache, inputs[:, i:i + 1], i)
+        step(inputs[:, i:i + 1], i)
     return logits, cache
 
 

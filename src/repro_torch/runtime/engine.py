@@ -1279,7 +1279,9 @@ class InferenceEngine:
                 pending.append(out[: part.n_own])
             h = torch.cat(pending, dim=0)
             if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+                # this stream only: a whole-device synchronise would break
+                # a capture that another worker has underway
+                torch.cuda.current_stream(self.device).synchronize()
             if trace_count() > traces_before:
                 self._trace_s += time.perf_counter() - t_run
             n_parts = len(parts)

@@ -198,7 +198,11 @@ def test_kernel_tier_matches_eager_tier_on_card(dev, policy, order):
     counter = fused_agg_cmb if policy == "sp_opt" else spmm
     before = counter.launches
     out = prog.run(params, x)
-    assert counter.launches == before + 2  # one launch per layer
+    # one launch per layer in the capture's warm-up, one in its replay
+    assert counter.launches == before + 4
+    again = prog.run(params, x)
+    assert counter.launches == before + 6  # a replay: one per layer
+    assert torch.equal(again, out)
     eager = prog.degraded(use_pallas=False).run(params, x)
     torch.testing.assert_close(out, eager, rtol=2e-4, atol=2e-4)
 
@@ -1034,3 +1038,142 @@ def test_checkpoint_from_every_card_restores_on_half_of_them(dev, tmp_path):
     cfg = get_config("granite-moe-1b-a400m").reduced()
     want = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     assert all(torch.equal(a, b.cpu()) for a, b in zip(got, leaves(want)))
+
+
+# ---------------------------------------------------------------------------
+# Captured executables: Program.run and the LM's decode step as CUDA graphs
+# ---------------------------------------------------------------------------
+
+
+def captured_program(dev, policy, order, use_pallas, v=120, f_in=28, seed=0):
+    """A GCN f_in -> 16 -> 4 Program bound to a random graph of ``v`` nodes
+    (ELL padded to 16), its parameters, and a maker of more graphs of the
+    same shape."""
+    from repro_torch.core.schedule import ModelSchedule
+
+    def graph(s):
+        rng = np.random.default_rng(s)
+        return from_edges(v, rng.integers(0, v, 3 * v), rng.integers(0, v, 3 * v))
+
+    dims = [(f_in, 16), (16, 4)]
+    prog = repro_torch.compile(
+        GNNConfig(f_in=f_in, n_classes=4, use_pallas=use_pallas), graph=graph(seed),
+        device=dev, schedule=ModelSchedule.from_policies(policy, order, dims))
+    prog = prog.bind(graph(seed), pad_degree=16)
+    return prog, prog.init(torch.Generator().manual_seed(seed)), graph
+
+
+def the_executable(prog):
+    (exe,) = prog._exec_cache.values()
+    return exe
+
+
+SEGMENTS = torch.as_tensor(np.repeat([0, 1, 2, 3, 5], [30, 40, 10, 25, 15]).astype(np.int32))
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+@pytest.mark.parametrize("policy,order", [("sp_opt", "AC"), ("seq", "AC"), ("seq", "CA")])
+@pytest.mark.parametrize("readout", [None, "mean", "max"])
+def test_a_replay_equals_the_direct_call(dev, use_pallas, policy, order, readout):
+    """The captured graph against the uncaptured forward it was captured
+    from, called directly on the same inputs: the same kernels with the
+    same launches, so ``torch.equal``; on the eager tier too."""
+    from repro_torch.api import CapturedForward
+
+    prog, params, _ = captured_program(dev, policy, order, use_pallas)
+    x = randn((120, 28), 3, dev)
+    seg = SEGMENTS.to(dev)
+    kw = {} if readout is None else dict(segment_ids=seg, num_segments=8, readout=readout)
+    out = prog.run(params, x, **kw)
+    again = prog.run(params, x, **kw)
+    exe = the_executable(prog)
+    assert isinstance(exe, CapturedForward) and exe.graph is not None
+    direct = exe.eager(params, prog.adj.indices, prog.adj.weights, x,
+                       seg if readout else None)
+    assert torch.equal(out, direct) and torch.equal(again, direct)
+
+
+def test_two_batches_of_one_shape_go_through_one_graph(dev):
+    """Two graphs and feature sets of one shape: one capture, and each
+    result equal to its own uncaptured run."""
+    prog, params, graph = captured_program(dev, "sp_opt", "AC", True)
+    other = prog.bind(graph(7), pad_degree=16)
+    xa, xb = randn((120, 28), 4, dev), randn((120, 28), 5, dev)
+    before = repro_torch.trace_count()
+    a = prog.run(params, xa)
+    b = other.run(params, xb)
+    assert repro_torch.trace_count() == before + 1
+    eager = the_executable(prog).eager
+    assert torch.equal(a, eager(params, prog.adj.indices, prog.adj.weights, xa, None))
+    assert torch.equal(b, eager(params, other.adj.indices, other.adj.weights, xb, None))
+    assert not torch.equal(a, b)
+
+
+def test_a_parameter_updated_in_place_is_seen_by_the_next_run(dev):
+    prog, params, _ = captured_program(dev, "seq", "AC", True)
+    x = randn((120, 28), 6, dev)
+    first = prog.run(params, x)
+    params[0]["w"].mul_(2.0)
+    params[1]["b"].add_(0.5)
+    second = prog.run(params, x)
+    want = the_executable(prog).eager(params, prog.adj.indices, prog.adj.weights, x, None)
+    assert torch.equal(second, want) and not torch.equal(first, second)
+
+
+def test_a_returned_output_survives_the_next_replay(dev):
+    prog, params, _ = captured_program(dev, "sp_opt", "AC", True)
+    xa, xb = randn((120, 28), 8, dev), randn((120, 28), 9, dev)
+    a = prog.run(params, xa)
+    kept = a.clone()
+    prog.run(params, xb)
+    torch.cuda.synchronize()
+    assert torch.equal(a, kept)
+
+
+def test_launch_counts_include_replays(dev):
+    """The capture's launches are not counted (nothing ran); its warm-up's
+    and every replay's are."""
+    prog, params, _ = captured_program(dev, "seq", "CA", True)
+    x = randn((120, 28), 10, dev)
+    before = (spmm.launches, gemm.launches)
+    prog.run(params, x)
+    assert (spmm.launches, gemm.launches) == (before[0] + 4, before[1] + 4)
+    assert the_executable(prog).graph.launches == {"spmm": 2, "gemm": 2}
+    for _ in range(3):
+        prog.run(params, x)
+    assert (spmm.launches, gemm.launches) == (before[0] + 10, before[1] + 10)
+
+
+def test_donate_releases_the_callers_storage(dev):
+    prog, params, _ = captured_program(dev, "sp_opt", "AC", True)
+    x = randn((120, 28), 11, dev)
+    want = prog.run(params, x.clone())
+    given = x.clone()
+    out = prog.run(params, given, donate=True)
+    assert given.untyped_storage().nbytes() == 0
+    assert torch.equal(out, want)
+    with pytest.raises(ValueError, match="own its whole storage"):
+        prog.run(params, torch.cat([x, x])[:120], donate=True)  # a view
+    out2 = prog.run(params, x, donate=True)
+    assert x.untyped_storage().nbytes() == 0 and torch.equal(out2, want)
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "recurrentgemma-2b", "xlstm-1.3b"])
+def test_captured_prefill_cache_matches_the_eager_replay(dev, arch):
+    """``prefill`` replays one captured ``decode_step``; the cache it builds
+    against the same positions replayed eagerly (float32, reduced width),
+    at the decode tolerance."""
+    from repro_torch.models import decode_step, init_cache, prefill
+    from repro_torch.models.transformer import captures_decode
+    from repro_torch.tree import leaves
+
+    cfg = get_config(arch).reduced().with_(dtype="float32")
+    assert captures_decode(cfg, dev)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(2), dev)
+    inputs = make_inputs(cfg, 2, 24, seed=3, device=dev)
+    _, captured = prefill(cfg, params, inputs)
+    eager = init_cache(cfg, 2, 24, dev)
+    for i in range(24):
+        decode_step(cfg, params, eager, inputs[:, i:i + 1], i)
+    for a, b in zip(leaves(captured), leaves(eager)):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-5)
