@@ -85,27 +85,36 @@ Phases, one JSON line each (no phase's error is caught):
                 (``spmm`` + ``gemm``) within 2e-4; the three times, and
                 whether the two streams' kernels overlap in the trace.
 8. train      — training on the card, which reaches no kernel (the
-                reference's training reaches no ``pallas_call``): cora GCN
+                reference's training reaches no ``pallas_call``), each step
+                a captured CUDA graph where the reference jits it: cora GCN
                 1433 -> 16 -> 8 through ``Program.train_step`` (searched
-                schedule, 2 epochs x 20 steps, lr 0.05: the second epoch
-                builds nothing, the loss falls, step 1 within 2e-4 of the
-                CPU's, the kernel tier's step refused with no launch);
-                ``repro_torch.launch.train.main`` at smollm-135m's published
-                widths (batch 8, seq 512): 30 steps with a checkpoint every
-                10, and the same run restarted from its step-20 checkpoint,
-                ``torch.equal`` to it; one step run twice from one state,
-                bit-identical; warm step times before and after one
-                profiled step, with the process's threads, allocator and
-                garbage-collector state at the phase's start; tokens/s,
-                peak memory, one profiled step of each model;
+                schedule, 2 epochs x 20 steps, lr 0.05: one capture, the
+                second epoch builds nothing, the first 3 steps
+                ``torch.equal`` to the uncaptured step, the loss falls,
+                step 1 within 2e-4 of the CPU's, the kernel tier's step
+                refused with no launch); ``repro_torch.launch.train.main``
+                at smollm-135m's published widths (batch 8, seq 512),
+                captured: 30 steps with a checkpoint every 10, and the same
+                run restarted from its step-20 checkpoint, ``torch.equal``
+                to it; one step run twice, each from its own copy of one
+                state, bit-identical; 3 captured steps ``torch.equal`` to
+                the uncaptured step (params, moments, step counter).  For
+                cora and smollm, captured and uncaptured: warm step ms
+                (CUDA events), kernels a step and device busy share (one
+                profiled step), peak memory allocated, and the graphs'
+                pool reserved; the process's threads, allocator and
+                garbage-collector state at the phase's start.
+                recurrentgemma-2b (3 layers) and xlstm-1.3b (8 layers) at
+                published widths, batch 2 x 128: 3 captured steps
+                ``torch.equal`` to uncaptured, warm step ms of each.
                 granite-moe-1b-a400m at its published widths (batch 2, seq
-                512): two steps, the second also run from the step-1 state
-                saved and restored by the ``Checkpointer``, ``torch.equal``
-                to the straight one; cora GCN under a ``pp`` schedule
-                trained through the two-stream Parallel Pipeline
-                (``mesh=[cuda:0, cuda:0]``, and two cards where there are
-                two): the loss equal to ``mesh=None``'s, the parameters
-                within 2e-4, a repeated step bit-identical.
+                512), uncaptured by rule: two steps, the second also run
+                from the step-1 state saved and restored by the
+                ``Checkpointer``, ``torch.equal`` to the straight one; cora
+                GCN under a ``pp`` schedule trained through the two-stream
+                Parallel Pipeline (``mesh=[cuda:0, cuda:0]``, and two cards
+                where there are two): the loss equal to ``mesh=None``'s,
+                the parameters within 2e-4, a repeated step bit-identical.
 9. gemm       — the dataflow GEMM's own entry point, the public op
                 ``gemm``, called once per dataflow on cora's layer-0
                 combination (on the model path it is the kernel tier's
@@ -2051,30 +2060,64 @@ def timed_steps(step, n) -> dict:
     }
 
 
+def graph_pool_bytes(graphs) -> int:
+    """Bytes the caching allocator holds in the private pools of
+    ``graphs`` (:class:`repro_torch.capture.CapturedGraph` objects): what
+    their captures reserve beyond the tensors the caller holds."""
+    pools = {tuple(g.graph.pool()) for g in graphs}
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) in pools)
+
+
+def step_profile(step, n, name) -> dict:
+    """``step(0) .. step(n - 1)`` timed (:func:`timed_steps`), the peak
+    memory allocated over them, then ``step(n)`` under the profiler: its
+    device busy share and the kernels it ran."""
+    torch.cuda.reset_peak_memory_stats()
+    timed = timed_steps(step, n)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _, trace = traced_step(lambda: step(n), name)
+    return {**timed, "peak_allocated_gib": peak, "kernels_per_step": trace["kernels"],
+            "device_busy_share": trace["device_busy_share"], "trace": trace}
+
+
+def leaves_differing(a, b) -> list:
+    from repro_torch.tree import leaf_paths, leaves
+
+    return ["/".join(map(str, path))
+            for (path, x), y in zip(leaf_paths(a), leaves(b)) if not torch.equal(x, y)]
+
+
 def phase_train(dev, counters) -> dict:
-    """Training on the card, as a user drives it; no kernel launches (the
-    reference's training reaches no ``pallas_call``, and no hand-written
-    kernel has a backward).
+    """Training on the card, as a user drives it, each step a captured CUDA
+    graph; no kernel launches (the reference's training reaches no
+    ``pallas_call``, and no hand-written kernel has a backward).
 
     GNN: ``compile`` on cora (GCN 1433 -> 16 -> 8, the searched schedule,
     the eager tier), then ``Program.train_step`` for 2 epochs x 20 steps at
-    lr 0.05 (``examples/train_gnn_dataflow.py``'s defaults): the second
-    epoch builds nothing, the loss falls, step 1 is within 2e-4 of the same
+    lr 0.05 (``examples/train_gnn_dataflow.py``'s defaults): one capture,
+    the second epoch builds nothing, the first 3 steps equal the
+    uncaptured step's, the loss falls, step 1 is within 2e-4 of the same
     step on the CPU, and the kernel tier's ``train_step`` raises with the
     launch counts unmoved.  LM: ``repro_torch.launch.train.main`` at
     smollm-135m's published widths (batch 8, seq 512): 30 steps with a
     checkpoint every 10; a copy of its checkpoints without step 30,
     restarted with the same flags, resumes at 20 and must end
     ``torch.equal`` to the straight run, parameters and optimizer state;
-    the same step run twice from one state must be bit-identical too.  Step
-    times by CUDA events (host cost included) before and after one
-    profiled step, with what else the process holds (``run_context``) and
-    the CPU time of its other threads; tokens/s, peak memory, and the
-    step's bound: 6 N tokens over the bf16 dense peak."""
+    the same step run twice from two copies of one state must be
+    bit-identical too, and 3 captured steps equal the uncaptured step's.
+    For both models, captured and uncaptured: warm step times by CUDA
+    events (host cost included) with the CPU time of the process's other
+    threads, one profiled step's kernels and busy share, peak memory and
+    the graphs' pool; the LM's tokens/s and its bound (6 N tokens over the
+    bf16 dense peak).  Then recurrentgemma-2b and xlstm-1.3b at cut depth
+    (:func:`train_families`), granite-moe (:func:`moe_train`) and the
+    two-stream PP (:func:`pp_train`)."""
     import contextlib
     import io
 
     import repro_torch
+    from repro_torch.api import CapturedForward
     from repro_torch.checkpoint import Checkpointer
     from repro_torch.configs import get_config
     from repro_torch.data import LMDataPipeline
@@ -2082,7 +2125,8 @@ def phase_train(dev, counters) -> dict:
     from repro_torch.graphs import load_dataset
     from repro_torch.launch import train
     from repro_torch.models import count_params, init_params
-    from repro_torch.tree import leaf_paths, leaves
+    from repro_torch.models.transformer import captures_train
+    from repro_torch.tree import tree_map
 
     t_phase = time.perf_counter()
     context = run_context(dev)
@@ -2094,9 +2138,9 @@ def phase_train(dev, counters) -> dict:
     prog = repro_torch.compile(cfg, graph=cora, objective="cycles", device=dev)
     x, labels, mask = make_node_classification_task(cora, spec.n_features, 8, device=dev)
     params = prog.init(torch.Generator().manual_seed(0))
-    first = [{k: v.cpu() for k, v in layer.items()} for layer in params]
+    first = [{k: v.clone() for k, v in layer.items()} for layer in params]
     reset_counts(counters)
-    losses, builds, step_ms, step1 = [], [], [], None
+    losses, builds, step_ms, kept = [], [], [], []
     for epoch in range(2):
         before = repro_torch.trace_count()
         for _ in range(20):
@@ -2108,15 +2152,29 @@ def phase_train(dev, counters) -> dict:
             end.synchronize()
             step_ms.append(start.elapsed_time(end))
             losses.append(float(loss))
-            if step1 is None:
-                step1 = (loss, params)
+            if len(kept) < 3:
+                kept.append((loss, params))
         builds.append(repro_torch.trace_count() - before)
     counts = {k: c.launches for k, c in counters.items()}
-    check(builds[1] == 0, f"GNN train: the second epoch built {builds[1]} executables")
+    check(builds == [1, 0], f"GNN train: builds per epoch {builds}, not [1, 0]")
     check(losses[-1] < losses[0], f"GNN train: loss {losses[0]} -> {losses[-1]}")
     check(all(n == 0 for n in counts.values()), f"GNN train launched kernels: {counts}")
+    (exe,) = [e for k, e in prog._exec_cache.items() if k[0] == "train"]
+    check(isinstance(exe, CapturedForward) and exe.graph is not None,
+          "GNN train: the step was not captured")
+    adj = prog.adj
+    p, differ = first, []
+    for i, (loss, new) in enumerate(kept):
+        want_loss, p = exe.eager(p, adj.indices, adj.weights, x, labels, mask)
+        if not torch.equal(loss, want_loss):
+            differ.append(f"step {i + 1} loss")
+        differ += [f"step {i + 1} {j}/{k}" for j, (a, b) in enumerate(zip(new, p))
+                   for k in a if not torch.equal(a[k], b[k])]
+    check(not differ, f"GNN train: captured steps differ from the uncaptured step: {differ[:4]}")
     cpu = prog.bind(cora, device="cpu")
-    loss_c, new_c = cpu.train_step(first, x.cpu(), labels.cpu(), mask.cpu(), lr=0.05)
+    first_cpu = [{k: v.cpu() for k, v in layer.items()} for layer in first]
+    loss_c, new_c = cpu.train_step(first_cpu, x.cpu(), labels.cpu(), mask.cpu(), lr=0.05)
+    step1 = kept[0]
     err = abs(float(step1[0]) - float(loss_c))
     for a, b in zip(step1[1], new_c):
         for k in a:
@@ -2133,17 +2191,34 @@ def phase_train(dev, counters) -> dict:
     check(refused, "GNN train: the kernel tier's train_step did not raise")
     check(all(c.launches == 0 for c in counters.values()),
           "GNN train: the refused kernel-tier step launched a kernel")
-    gnn = {"phase": "train", "model": "gcn cora", "dims": cfg.dims, "layers": tiers(prog),
-           "steps": len(losses), "lr": 0.05, "builds_per_epoch": builds,
-           "loss_first": losses[0], "loss_last": losses[-1],
-           "step_ms_median_warm": statistics.median(step_ms[1:]),
-           "step_ms_first": step_ms[0], "step1_max_abs_err_vs_cpu": err,
-           "kernel_tier_refused": True, "launches": counts}
-    gnn_params = params
+    gstate = {"captured": params, "uncaptured": params}
+
+    def gnn_captured(_):
+        loss, gstate["captured"] = prog.train_step(gstate["captured"], x, labels, mask, lr=0.05)
+        return loss
+
+    def gnn_uncaptured(_):
+        loss, gstate["uncaptured"] = exe.eager(gstate["uncaptured"], adj.indices,
+                                               adj.weights, x, labels, mask)
+        return loss
+
+    gnn_steps = {"captured": step_profile(gnn_captured, 10, "train_gnn"),
+                 "uncaptured": step_profile(gnn_uncaptured, 10, "train_gnn_eager")}
+    emit({"phase": "train", "model": "gcn cora", "dims": cfg.dims, "layers": tiers(prog),
+          "steps": len(losses), "lr": 0.05, "builds_per_epoch": builds,
+          "loss_first": losses[0], "loss_last": losses[-1],
+          "step_ms_first": step_ms[0], "step_ms_median_warm": statistics.median(step_ms[1:]),
+          "captured_equals_uncaptured_3_steps": not differ,
+          "step1_max_abs_err_vs_cpu": err, "kernel_tier_refused": True,
+          "graph_pool_bytes": graph_pool_bytes([exe.graph]),
+          "memory_reserved_bytes": torch.cuda.memory_reserved(dev),
+          **gnn_steps, "launches": counts, "card": card_line(), "ok": True})
+    del gstate, kept, exe
 
     # -- LM: launch.train.main at smollm-135m's published widths ------------
     arch, batch, seq = "smollm-135m", 8, 512
     lm = get_config(arch)
+    check(captures_train(lm, dev), f"{arch} train: not captured by the rule")
     root = Path(__file__).resolve().parent / "build" / "train_ckpt"
     shutil.rmtree(root, ignore_errors=True)
     flags = ["--arch", arch, "--batch", str(batch), "--seq", str(seq),
@@ -2182,68 +2257,155 @@ def phase_train(dev, counters) -> dict:
     init_opt, step_fn = train.build_trainer(lm, lr=3e-4, total_steps=30)
     like = {"params": params, "opt": init_opt(params), "data": {"seed": 0, "step": 0}}
     got = {k: Checkpointer(root / k).restore(like, step=30) for k in ("resumed", "straight")}
-    differ = [
-        "/".join(map(str, path))
-        for (path, a), b in zip(leaf_paths(got["resumed"]), leaves(got["straight"]))
-        if not torch.equal(a, b)
-    ]
+    differ = leaves_differing(got["resumed"], got["straight"])
     shutil.rmtree(root, ignore_errors=True)
-    del got
-    # the same step twice from one state (the embedding's gather, the
-    # cuBLAS products, every reduction of the backward)
+    del got, like
+    torch.cuda.empty_cache()
+    # the same step twice, each from its own copy of one state (the
+    # captured step owns the state it is given), each result copied out
     data = LMDataPipeline(lm, batch, seq, seed=0, device=dev)
     opt = init_opt(params)
-    twice = [step_fn(params, opt, None, data.peek(0)) for _ in range(2)]
-    repeat_differ = [
-        "/".join(map(str, path))
-        for (path, a), b in zip(leaf_paths(twice[0][1]), leaves(twice[1][1]))
-        if not torch.equal(a, b)
-    ]
+    twice = [tree_map(torch.clone, step_fn(*tree_map(torch.clone, (params, opt)), None,
+                                           data.peek(0))) for _ in range(2)]
+    repeat_differ = leaves_differing(twice[0], twice[1])
     del twice
-    # warm step times before and after one profiled step
-    state = {"params": params, "opt": opt}
+    # 3 captured steps against 3 uncaptured, from the same state
+    owned, fresh, lm_differ = tree_map(torch.clone, (params, opt)), (params, opt), []
+    for s in range(3):
+        loss_c, pc, oc, _ = step_fn(*owned, None, data.peek(s))
+        loss_e, pe, oe, _ = step_fn.eager(*fresh, None, data.peek(s))
+        owned, fresh = (pc, oc), (pe, oe)
+        if not torch.equal(loss_c, loss_e):
+            lm_differ.append(f"step {s + 1} loss")
+    lm_differ += leaves_differing(owned, fresh)
+    check(len(step_fn.graphs) == 1, f"LM train: {len(step_fn.graphs)} graphs, not 1")
+    state = {"captured": owned, "uncaptured": fresh}
 
-    def lm_step(s):
-        loss, state["params"], state["opt"], _ = step_fn(
-            state["params"], state["opt"], None, data.peek(s))
+    def lm_captured(s):
+        loss, *st, _ = step_fn(*state["captured"], None, data.peek(3 + s))
+        state["captured"] = tuple(st)
+        return loss
+
+    def lm_uncaptured(s):
+        loss, *st, _ = step_fn.eager(*state["uncaptured"], None, data.peek(3 + s))
+        state["uncaptured"] = tuple(st)
         return loss
 
     launch_before = launch_us(dev)
-    untraced = timed_steps(lm_step, 6)
-    loss, lm_trace = traced_step(lambda: lm_step(6), "train_lm")
-    after_trace = timed_steps(lambda s: lm_step(7 + s), 6)
-    check(bool(torch.isfinite(loss)), "LM train: non-finite loss")
-    ms = untraced["step_ms_median"]
-    n = count_params(state["params"])
+    lm_steps = {"captured": step_profile(lm_captured, 6, "train_lm"),
+                "uncaptured": step_profile(lm_uncaptured, 6, "train_lm_eager")}
+    check(bool(torch.isfinite(lm_captured(20))), "LM train: non-finite loss")
+    ms = lm_steps["captured"]["step_ms_median"]
+    n = count_params(params)
     bound = 6 * n * batch * seq / PEAK_OPS[torch.bfloat16] * 1e3
+    for v in lm_steps.values():
+        v["tokens_per_s"] = batch * seq / v["step_ms_median"] * 1e3
     emit({"phase": "train", "model": arch, "depth": lm.n_layers, "d_model": lm.d_model,
           "vocab": lm.vocab, "dtype": lm.dtype, "params": n, "batch": batch, "seq": seq,
           "runs": finals, "resumed_equals_straight": not differ,
           "leaves_differing": differ[:8], "n_leaves_differing": len(differ),
           "repeat_step_bit_identical": not repeat_differ,
-          "repeat_leaves_differing": repeat_differ[:8], "context": context,
+          "repeat_leaves_differing": repeat_differ[:8],
+          "captured_equals_uncaptured_3_steps": not lm_differ,
+          "captured_leaves_differing": lm_differ[:8], "context": context,
           "launch_us_before_steps": launch_before,
-          "step_ms_median": ms, "step_ms": untraced["step_ms"],
-          "tokens_per_s": batch * seq / ms * 1e3, "untraced": untraced,
-          "after_trace": after_trace,
-          "tokens_per_s_after_trace": batch * seq / after_trace["step_ms_median"] * 1e3,
+          "step_ms_median": ms, "tokens_per_s": batch * seq / ms * 1e3,
           "bound_ms_6NT_bf16": bound, "bound_share": bound / ms,
-          "peak_memory_gib": peak_gb, "trace": lm_trace, "launches": counts,
-          "card": card_line(),
-          "ok": not differ})
+          "peak_memory_gib_main_runs": peak_gb,
+          "graph_pool_bytes": graph_pool_bytes(step_fn.graphs.values()),
+          "memory_reserved_bytes": torch.cuda.memory_reserved(dev),
+          **lm_steps, "launches": counts, "card": card_line(),
+          "ok": not (differ or repeat_differ or lm_differ)})
     check(not differ, f"LM train: resumed and straight runs differ in {len(differ)} "
           f"leaves, first {differ[:4]}")
-    del params, opt, data, state
+    check(not repeat_differ, f"LM train: the repeated step differs in {repeat_differ[:4]}")
+    check(not lm_differ, f"LM train: captured steps differ from uncaptured: {lm_differ[:4]}")
+    del params, opt, data, state, owned, fresh, step_fn, pc, oc, pe, oe, loss_c, loss_e
     torch.cuda.empty_cache()
+    train_families(dev, counters)
     moe_train(dev, counters)
     pp_train(dev, cora, spec, x, labels, mask)
-    _, gnn["trace"] = traced_step(
-        lambda: prog.train_step(gnn_params, x, labels, mask, lr=0.05), "train_gnn")
-    emit(gnn | {"ok": True})
     for k in launches:
         launches[k] += counts[k]
     print(f"train phase wall {time.perf_counter() - t_phase:.3f} s", flush=True)
     return launches
+
+
+def train_families(dev, counters, batch=2, seq=128) -> None:
+    """recurrentgemma-2b (one (rglru, rglru, local) period) and xlstm-1.3b
+    (8 blocks: 7 mLSTM, 1 sLSTM) at their published widths, cut in depth,
+    AdamW at ``batch`` x ``seq``: 3 uncaptured steps, then 3 captured ones
+    (the RG-LRU doubling scan, the xLSTM time loops and their backward
+    inside the graph) from the same state, ``torch.equal`` in every loss
+    and leaf; then 4 warm steps of each, timed.  One state lives on the
+    card at a time (recurrentgemma's 256k-token embedding makes it 15 GB
+    with its moments): the start and the uncaptured result wait on the
+    host."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import LMDataPipeline
+    from repro_torch.launch import train
+    from repro_torch.models import count_params, init_params
+    from repro_torch.models.transformer import captures_train
+    from repro_torch.tree import leaf_paths, leaves, tree_map
+
+    for arch, layers in (("recurrentgemma-2b", 3), ("xlstm-1.3b", 8)):
+        cfg = get_config(arch).with_(n_layers=layers)
+        check(captures_train(cfg, dev), f"{arch} train: not captured by the rule")
+        reset_counts(counters)
+        torch.cuda.reset_peak_memory_stats()
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        n = count_params(params)
+        init_opt, step_fn = train.build_trainer(cfg, lr=3e-4, total_steps=10)
+        data = LMDataPipeline(cfg, batch, seq, seed=0, device=dev)
+        box = {"state": (params, init_opt(params))}
+        del params
+        start = tree_map(lambda t: t.cpu(), box["state"])
+        runs = {}
+        for kind, fn in (("uncaptured", step_fn.eager), ("captured", step_fn)):
+            if kind == "captured":
+                box["state"] = tree_map(lambda t: t.to(dev), start)
+                del start
+
+            def one(s, fn=fn):
+                loss, *st, _ = fn(*box["state"], None, data.peek(s))
+                box["state"] = tuple(st)
+                return loss
+
+            losses, first_ms = [], []
+            for s in range(3):
+                t0 = time.perf_counter()
+                losses.append(one(s))
+                torch.cuda.synchronize()
+                first_ms.append((time.perf_counter() - t0) * 1e3)
+            if kind == "uncaptured":
+                after3 = tree_map(lambda t: t.cpu(), box["state"])
+                differ = []
+            else:
+                differ = ["/".join(map(str, path)) for (path, a), b in
+                          zip(leaf_paths(box["state"]), leaves(after3))
+                          if not torch.equal(a, b.to(dev))]
+                del after3
+            runs[kind] = {"losses": torch.stack(losses).cpu(), "first_steps_ms": first_ms,
+                          **timed_steps(lambda s: one(3 + s), 4)}
+            box["state"] = None
+            torch.cuda.empty_cache()
+        if not torch.equal(runs["captured"]["losses"], runs["uncaptured"]["losses"]):
+            differ.append("losses")
+        counts = {k: c.launches for k, c in counters.items()}
+        for r in runs.values():
+            r["losses"] = r["losses"].tolist()
+        emit({"phase": "train", "model": arch, "depth": layers, "d_model": cfg.d_model,
+              "dtype": cfg.dtype, "params": n, "batch": batch, "seq": seq,
+              "graphs": len(step_fn.graphs), "captured_equals_uncaptured_3_steps": not differ,
+              "leaves_differing": differ[:8], "n_leaves_differing": len(differ),
+              "step_ms_median": {k: v["step_ms_median"] for k, v in runs.items()},
+              **runs, "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "launches": counts, "card": card_line(), "ok": not differ})
+        check(not differ, f"{arch} train: captured steps differ from uncaptured: {differ[:4]}")
+        check(len(step_fn.graphs) == 1, f"{arch} train: {len(step_fn.graphs)} graphs, not 1")
+        check(all(v == 0 for v in counts.values()), f"{arch} train launched kernels: {counts}")
+        del step_fn, box
+        torch.cuda.empty_cache()
 
 
 def pp_train(dev, cora, spec, x, labels, mask) -> None:
@@ -2312,8 +2474,11 @@ def moe_train(dev, counters, batch=2, seq=512) -> None:
     from repro_torch.models import count_params, init_params
     from repro_torch.tree import leaf_paths, leaves
 
+    from repro_torch.models.transformer import captures_train
+
     arch = "granite-moe-1b-a400m"
     cfg = get_config(arch)
+    check(not captures_train(cfg, dev), f"{arch} train: captured, though it has MoE blocks")
     root = Path(__file__).resolve().parent / "build" / "train_moe_ckpt"
     shutil.rmtree(root, ignore_errors=True)
     torch.cuda.reset_peak_memory_stats()
@@ -2356,6 +2521,7 @@ def moe_train(dev, counters, batch=2, seq=512) -> None:
               if not torch.equal(a, b)]
     emit({"phase": "train", "model": arch, "depth": cfg.n_layers, "d_model": cfg.d_model,
           "experts": [cfg.moe.n_experts, cfg.moe.top_k], "dtype": cfg.dtype, "params": n,
+          "captured": False, "graphs": len(step_fn.graphs),
           "batch": batch, "seq": seq, "losses": losses, "step_ms": step_ms,
           "tokens_per_s_step2": batch * seq / step_ms[1] * 1e3,
           "bound_ms_6NT_bf16": 6 * cfg.active_param_count() * batch * seq
@@ -2366,6 +2532,7 @@ def moe_train(dev, counters, batch=2, seq=512) -> None:
           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
           "launches": counts, "card": card_line(), "ok": not differ})
     check(all(v == 0 for v in counts.values()), f"{arch} train launched kernels: {counts}")
+    check(not step_fn.graphs, f"{arch} train: {len(step_fn.graphs)} graphs captured")
     check(not differ, f"{arch} train: the resumed step differs in {len(differ)} leaves, "
           f"first {differ[:4]}")
     del straight, resumed

@@ -55,6 +55,7 @@ from .device import on_device, resolve_device
 from .gnn.layers import LAYER_FNS, EllAdjacency, init_layer
 from .gnn.model import GNNConfig, forward_layers, masked_xent_loss
 from .graphs.csr import CSRGraph
+from .tree import leaves, tree_map, unflatten
 
 #: Artifact schema version.  Bump the suffix whenever the JSON layout of
 #: :meth:`Program.to_json` changes incompatibly (new required field,
@@ -139,35 +140,33 @@ def _stats_from_dict(d: dict) -> ModelStats:
 
 
 class CapturedForward:
-    """A Program's executable on a CUDA device: its uncaptured forward
-    (``eager``) captured as a :class:`~repro_torch.capture.CapturedGraph`
-    on the first call, over static copies of the adjacency, the features,
-    the segment ids and every parameter, and replayed by each later call.
-    The parameters are copied in on every call, so a run after an in-place
-    update (or with other weights of the same shapes) computes with the
-    values it is given."""
+    """A Program's executable on a CUDA device, its forward or its training
+    step: the uncaptured closure (``eager``) captured as a
+    :class:`~repro_torch.capture.CapturedGraph` on the first call, over
+    static copies of every tensor of its arguments (the adjacency, the
+    features, the segment ids or the labels and mask, and every parameter),
+    and replayed by each later call.  The parameters are copied in on every
+    call, so a run after an in-place update (or with other weights of the
+    same shapes) computes with the values it is given; the results are
+    copied out, in the structure ``eager`` returns (logits, or the loss and
+    the new parameters)."""
 
     def __init__(self, eager):
         self.eager = eager
         self.graph: CapturedGraph | None = None
+        self._out = None  # eager's result with every tensor replaced by 0
 
-    def __call__(self, params, indices, weights, x, segment_ids):
-        names = [sorted(layer) for layer in params]
-        flat = [indices, weights, x]
-        if segment_ids is not None:
-            flat.append(segment_ids)
-        flat += [layer[k] for layer, ks in zip(params, names) for k in ks]
+    def __call__(self, *args):
+        flat = leaves(args)
         if self.graph is None:
-            batched = segment_ids is not None
 
-            def fn(indices, weights, x, *rest):
-                seg, leaves = (rest[0], rest[1:]) if batched else (None, rest)
-                it = iter(leaves)
-                ps = [{k: next(it) for k in ks} for ks in names]
-                return self.eager(ps, indices, weights, x, seg)
+            def fn(*flat_args):
+                out = self.eager(*unflatten(args, flat_args))
+                self._out = tree_map(lambda _: 0, out)
+                return tuple(leaves(out))
 
             self.graph = CapturedGraph(fn, flat)
-        return self.graph(*flat)
+        return unflatten(self._out, self.graph(*flat))
 
 
 @dataclass(frozen=True)
@@ -344,7 +343,7 @@ class Program:
 
         ``x`` and ``segment_ids`` may be numpy arrays (copied to the bound
         graph's device); a tensor, parameters included, must already be on
-        that device.  Executables are cached per shape key: the
+        that device.  Executables are cached per device and shape key: the
         second call on a same-shape input (including a same-shape
         :meth:`bind`) builds nothing (see :func:`trace_count`).  On a CUDA
         device without a mesh an executable is a CUDA graph, captured on
@@ -397,7 +396,7 @@ class Program:
             segment_ids = on_device(segment_ids, dev, "segment_ids")
         readout = (readout or "mean") if batched else None
         key = (
-            adj.n_nodes, None if mesh is None else tuple(mesh), bool(donate),
+            dev, adj.n_nodes, None if mesh is None else tuple(mesh), bool(donate),
             readout, num_segments, tuple(adj.indices.shape), tuple(x.shape),
             x.dtype,
             tuple(
@@ -463,10 +462,14 @@ class Program:
             on_device(mask, dev, "mask"),
         )
 
-    def _train_executable(self, n_nodes: int, mesh, lr: float):
-        """One SGD step for one ``("train", n_nodes, mesh, lr)`` key,
-        counted by :func:`trace_count`; :meth:`train_step` keeps it in the
-        forward executables' shared cache once it has run."""
+    def _train_executable(self, n_nodes: int, mesh, lr: float, device):
+        """One SGD step for one shape key, counted by :func:`trace_count`:
+        on a CUDA device without a mesh captured as a CUDA graph on its
+        first call (:class:`CapturedForward`; ``.eager`` is the uncaptured
+        step), the counterpart of the reference's jitted step; on the CPU,
+        or over a mesh, the uncaptured step itself.  :meth:`train_step`
+        keeps it in the forward executables' shared cache once it has
+        run."""
         _note_trace()
         # every layer trains on the eager path: the layers that reach a
         # kernel were refused before, and the others (pp's two-group
@@ -493,6 +496,8 @@ class Program:
                 ]
             return loss.detach(), new
 
+        if device.type == "cuda" and mesh is None:
+            return CapturedForward(exe)
         return exe
 
     def train_step(self, params, x, labels, mask, *, lr: float = 0.05, mesh=None):
@@ -500,11 +505,18 @@ class Program:
         schedule; returns ``(loss, new_params)``, detached tensors.
 
         The step lives in the Program's shared executable cache keyed by
-        ``(shape, mesh, lr)``: later epochs — and same-shape rebinds —
-        build nothing (:func:`trace_count` stays put); a step whose first
-        run raises is not kept, as in :meth:`run`.  Gradients come from
-        autograd through the eager tier's plain PyTorch ops on the bound
-        device, as the reference differentiates its jnp ops.
+        ``(device, n_nodes, mesh, lr)`` and the shapes and dtypes of the adjacency,
+        ``x``, ``labels``, ``mask`` and every parameter (where the
+        reference's jitted step retraces): later epochs — and same-shape
+        rebinds — build nothing (:func:`trace_count` stays put); a step
+        whose first run raises is not kept, as in :meth:`run`.  On a CUDA
+        device without a mesh the step is a CUDA graph, captured on its
+        first run (loss, backward and update) and replayed by every later
+        one; the inputs are copied in and the results copied out, so the
+        step donates nothing and returns fresh tensors, as the reference's
+        does.  Gradients come from autograd through the eager tier's plain
+        PyTorch ops on the bound device, as the reference differentiates
+        its jnp ops.
 
         No hand-written kernel has a backward, as no Pallas kernel of the
         reference has one (its ``train_step`` fails to linearize a layer
@@ -540,15 +552,22 @@ class Program:
         for i, layer in enumerate(params):
             for k, v in layer.items():
                 on_device(v, dev, f"params[{i}][{k!r}]")
-        key = ("train", adj.n_nodes, mesh, float(lr))
+        x = on_device(x, dev, "x")
+        labels = on_device(labels, dev, "labels")
+        mask = on_device(mask, dev, "mask")
+        key = (
+            "train", dev, adj.n_nodes, mesh, float(lr),
+            *((tuple(t.shape), t.dtype) for t in (adj.indices, adj.weights, x, labels, mask)),
+            tuple(
+                (k, tuple(v.shape), v.dtype)
+                for layer in params for k, v in sorted(layer.items())
+            ),
+        )
         exe = self._exec_cache.get(key)
         fresh = exe is None
         if fresh:
-            exe = self._train_executable(adj.n_nodes, mesh, float(lr))
-        out = exe(
-            params, adj.indices, adj.weights, on_device(x, dev, "x"),
-            on_device(labels, dev, "labels"), on_device(mask, dev, "mask"),
-        )
+            exe = self._train_executable(adj.n_nodes, mesh, float(lr), dev)
+        out = exe(params, adj.indices, adj.weights, x, labels, mask)
         if fresh:  # kept only once it has run
             self._exec_cache[key] = exe
         return out

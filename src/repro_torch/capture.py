@@ -34,6 +34,16 @@ What a capture must hold to:
   thread may synchronise the whole device while another captures
   (CUDA refuses it), so the port's paths that may run beside a capture
   synchronise their own stream.
+- *Backward.*  A training step's ``torch.autograd.grad`` runs inside the
+  capture: autograd's device thread launches each backward op on the
+  stream its forward op ran on, which is the capturing stream, so the
+  backward joins the graph (the card's tests hold a replay equal to the
+  uncaptured step, with the parameters moved).
+- *Donated state.*  A replay that fails raises
+  :class:`~repro_torch.kernels.common.CudaKernelError`, whose donated
+  buffers may be half written; callers re-raise it and never run again
+  from them (:class:`~repro_torch.runtime.fault_tolerance.ResilientRunner`
+  does not retry it, and a restart resumes from the last checkpoint).
 """
 from __future__ import annotations
 
@@ -56,13 +66,23 @@ class CapturedGraph:
     tensors.  ``mutated`` lists tensors outside ``inputs`` that ``fn``
     writes in place (a decode cache): the eager warm-up's writes to them
     are undone, so only the replays change them.
+
+    ``donated`` inputs (the first ``donated`` of them) are not copied: the
+    graph takes those very tensors as its buffers, as a ``jax.jit``
+    executable owns the arguments donated to it, and ``fn`` writes its new
+    values into them in place (a training state).  A call that passes the
+    buffers themselves copies nothing in; any other tensor is copied in.
+    The caller's tensors are then the graph's: a replay overwrites them.
+    ``warmup`` runs in place of ``fn`` for the eager warm-up: for a ``fn``
+    that writes its donated buffers, the same computation with the writes
+    left out, so the warm-up leaves them as it found them without a copy.
     """
 
-    def __init__(self, fn, inputs, *, mutated=()):
+    def __init__(self, fn, inputs, *, mutated=(), donated=0, warmup=None):
         self.device = inputs[0].device
         if self.device.type != "cuda":
             raise ValueError(f"CapturedGraph needs CUDA tensors, got {self.device}")
-        self.static = [t.clone() for t in inputs]
+        self.static = list(inputs[:donated]) + [t.clone() for t in inputs[donated:]]
         self._lock = threading.Lock()
         self._done = torch.cuda.Event()
         self._replayed = False
@@ -71,7 +91,7 @@ class CapturedGraph:
         side.wait_stream(caller)
         with torch.cuda.device(self.device), torch.cuda.stream(side):
             saved = [t.clone() for t in mutated]
-            fn(*self.static)  # warm-up: kernels built and loaded, pools made
+            (warmup or fn)(*self.static)  # warm-up: kernels built and loaded, pools made
             for t, s in zip(mutated, saved):
                 t.copy_(s)
             del saved
@@ -103,17 +123,19 @@ class CapturedGraph:
             if self._replayed:
                 stream.wait_event(self._done)
             for buf, value in zip(self.static, inputs):
+                if value is buf:
+                    continue
                 if isinstance(value, torch.Tensor):
                     buf.copy_(value)
                 else:
                     buf.fill_(value)
-            try:
+            try:  # a fault from here on may leave donated buffers half written
                 with torch.cuda.device(self.device):
                     self.graph.replay()
+                out = tuple(t.clone() for t in self.out)
             except RuntimeError as e:
                 raise CudaKernelError(f"CUDA graph replay failed: {e}") from e
             add_launches(self.tally)
-            out = tuple(t.clone() for t in self.out)
             self._done.record(stream)
             self._replayed = True
         return out[0] if self._single else out

@@ -7,9 +7,10 @@ returns a frozen `Program` already bound to the graph; `program.train_step`
 then trains a 2-layer GCN on a node-classification task through the
 Program's shared executable cache: the step (autograd through the eager
 tier's plain PyTorch ops, as the reference differentiates its jnp ops) is
-built **once** on the first step and every later step — every later
-*epoch* — reuses it (the second epoch asserts a
-`repro_torch.trace_count()` delta of exactly 0).
+built **once** on the first step — on the card, captured as one CUDA
+graph (forward, backward and update), as the reference jits it — and
+every later step — every later *epoch* — reuses it (the second epoch
+asserts a `repro_torch.trace_count()` delta of exactly 0).
 
     PYTHONPATH=src python -m repro_torch.examples.train_gnn_dataflow [--dataset cora] [--device cpu]
 """

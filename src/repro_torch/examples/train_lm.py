@@ -4,7 +4,9 @@
 
 It trains the reduced smollm-135m (batch 4 x 64) for 20 steps with a
 checkpoint every 10, simulates a preemption, then resumes to 40 steps from
-the atomic checkpoint.  The checkpoints go to ``--checkpoint-dir``
+the atomic checkpoint.  On the card each step is a captured CUDA graph
+that owns the training state (``launch.train.TrainStep``); the resumed
+run copies the restored state into it.  The checkpoints go to ``--checkpoint-dir``
 (default: ``build/train_lm_example`` in the checkout, emptied first).  The
 full-size run is the same code path:
 

@@ -143,7 +143,12 @@ class _AggregateBand(torch.autograd.Function):
     """:func:`aggregate_band` with a backward: ``dx[idx[v, d]] += w[v, d] *
     g[v]`` and ``dw[v, d] = g[v] . x[idx[v, d]]``.  ``dx`` sums each row's
     terms in slot order (a stable sort by row, then one segment sum a row),
-    with no atomics: a step repeated on the card gives the same bits."""
+    with no atomics: a step repeated on the card gives the same bits.  The
+    backward reads nothing on the host, so a captured training step holds
+    it: ``segment_reduce`` runs ``unsafe``, without its checks of
+    ``lengths`` (a negative length, lengths that miss the row count), which
+    read the device from the host; the lengths are counts of ``flat``, so
+    they hold by construction."""
 
     @staticmethod
     def forward(ctx, indices, weights, x):
@@ -164,7 +169,8 @@ class _AggregateBand(torch.autograd.Function):
             order = torch.argsort(flat, stable=True)
             rows = torch.zeros(x.shape[0], dtype=torch.int64, device=flat.device)
             rows.scatter_add_(0, flat, torch.ones_like(flat))
-            gx = torch.segment_reduce(terms[order], "sum", lengths=rows, axis=0)
+            gx = torch.segment_reduce(terms[order], "sum", lengths=rows, axis=0,
+                                      unsafe=True)
             gx = gx.to(x.dtype)
         return None, gw, gx
 

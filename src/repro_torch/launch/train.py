@@ -16,7 +16,12 @@ atomic checkpoints + auto-resume, retrying step runner with straggler
 monitor, optional int8 error-feedback gradient compression (on the
 gradient after the data-parallel reduction).  The loss and its gradients
 are plain PyTorch ops (autograd), as the reference differentiates plain
-jnp ops: no hand-written kernel has a backward.
+jnp ops: no hand-written kernel has a backward.  On one card the step is
+a CUDA graph that owns the training state, as the reference jits its step
+and donates the state to it (:class:`TrainStep`).  A step that fails in
+its replay raises ``CudaKernelError``, which the runner re-raises without
+a retry: the state may be half written, and a restart resumes from the
+latest checkpoint.
 
 With a process group of more than one rank (torchrun's environment, or a
 group the caller started) the trainer builds ``make_mesh_for(world,
@@ -37,6 +42,7 @@ import time
 import torch
 import torch.distributed as dist
 
+from ..capture import CapturedGraph
 from ..checkpoint.checkpointer import Checkpointer
 from ..configs import ARCH_IDS, get_config
 from ..data.pipeline import LMDataPipeline
@@ -49,10 +55,11 @@ from ..models import (
     use_sharding,
 )
 from ..models.sharding import distribute, shard
+from ..models.transformer import captures_train
 from ..optim import adamw, compress_grads, decompress_grads, init_error_feedback
 from ..optim.schedule import warmup_cosine
 from ..runtime.fault_tolerance import ResilientRunner, StragglerMonitor
-from ..tree import leaves, tree_map, unflatten
+from ..tree import leaf_paths, leaves, tree_map, unflatten
 from .mesh import init_process_group, make_mesh_for
 
 log = logging.getLogger("repro_torch.train")
@@ -62,18 +69,18 @@ def build_trainer(cfg, mesh=None, rules=None, lr=3e-4, total_steps=10_000,
                   grad_compression: str | None = None):
     """Returns ``(init_opt, step_fn)``; ``step_fn(params, opt, ef, batch)
     -> (loss, params, opt, ef)`` is one AdamW step under the reference's
-    warmup-cosine schedule.  With a ``mesh`` the step runs under
-    ``use_sharding(mesh, rules)`` on DTensor parameters: the batch is
-    sharded over the rules' batch axes, the loss made whole, and each
-    gradient reduced to its parameter's placements (the data-parallel
-    all-reduce) before compression and the update."""
+    warmup-cosine schedule, a :class:`TrainStep`.  With a ``mesh`` the
+    step runs under ``use_sharding(mesh, rules)`` on DTensor parameters:
+    the batch is sharded over the rules' batch axes, the loss made whole,
+    and each gradient reduced to its parameter's placements (the
+    data-parallel all-reduce) before compression and the update."""
     init_opt, update = adamw(lr=warmup_cosine(lr, min(100, total_steps // 10 + 1), total_steps))
 
-    def step_fn(params, opt, ef, batch):
+    def step(params, opt, ef, batch, in_place=False):
         with use_sharding(mesh, rules):
-            return _step(params, opt, ef, batch)
+            return _step(params, opt, ef, batch, in_place)
 
-    def _step(params, opt, ef, batch):
+    def _step(params, opt, ef, batch, in_place):
         if mesh is not None:
             batch = {k: shard(v, "batch", *(None,) * (v.dim() - 1))
                      for k, v in batch.items()}
@@ -92,12 +99,72 @@ def build_trainer(cfg, mesh=None, rules=None, lr=3e-4, total_steps=10_000,
         grads = unflatten(params, grads)
         with torch.no_grad():
             if grad_compression == "int8":
-                q, ef = compress_grads(grads, ef)
+                q, ef = compress_grads(grads, ef, in_place)
                 grads = decompress_grads(q)
-            params, opt = update(grads, opt, params)
+            params, opt = update(grads, opt, params, in_place)
         return loss.detach(), params, opt, ef
 
-    return init_opt, step_fn
+    return init_opt, TrainStep(cfg, mesh, step)
+
+
+class TrainStep:
+    """:func:`build_trainer`'s step, the counterpart of the reference's
+    ``jax.jit(step_fn, donate_argnums=(0, 1, 2))``.
+
+    Where :func:`~repro_torch.models.transformer.captures_train` holds (a
+    CUDA device, no mesh, no MoE block) the step is a CUDA graph, captured
+    on the first call for each shape key (the paths, shapes, dtypes and
+    devices of every leaf of the state and the batch) and replayed by
+    every later call with that key.  The state is donated: the first
+    call's params,
+    opt and ef tensors become the graph's buffers, each replay writes the
+    new state into them in place (:func:`~repro_torch.optim.adamw`'s and
+    :func:`~repro_torch.optim.compress_grads`'s ``in_place``, the same
+    bits as the fresh tensors of :meth:`eager`), and the step returns
+    those buffers, with the loss copied out.  A call whose state is those
+    very tensors copies nothing in; any other state (a restore, a fresh
+    init) is copied in.  So one copy of the state lives on the card, and a
+    caller that keeps a state across a step clones it first, as a donated
+    JAX array is gone after the call.  The capture's warm-up runs the step
+    with its writes left out, so it leaves the state as it found it with
+    no copy of it, and returns its memory to the card before the capture.
+    Elsewhere (the CPU, a mesh, an MoE arch) the step is
+    :meth:`eager`.  ``graphs`` holds one graph per key that has run."""
+
+    def __init__(self, cfg, mesh, step):
+        self.cfg, self.mesh, self._step = cfg, mesh, step
+        self.graphs: dict = {}
+
+    def eager(self, params, opt, ef, batch):
+        """The uncaptured step: fresh tensors, the arguments untouched."""
+        return self._step(params, opt, ef, batch)
+
+    def __call__(self, params, opt, ef, batch):
+        state = (params, opt, ef)
+        if not captures_train(self.cfg, leaves(params)[0].device, self.mesh):
+            return self.eager(params, opt, ef, batch)
+        args = (state, batch)
+        key = tuple((path, tuple(t.shape), t.dtype, t.device) for path, t in leaf_paths(args))
+        n = len(leaves(state))
+        graph = self.graphs.get(key)
+        if graph is None:
+
+            def run(in_place):
+                def fn(*flat):
+                    (p, o, e), b = unflatten(args, flat)
+                    return self._step(p, o, e, b, in_place)[0]
+                return fn
+
+            def warmup(*flat):
+                run(False)(*flat)
+                # the capture's private pool cannot reuse what the warm-up
+                # left cached: hand it back to the card first
+                torch.cuda.empty_cache()
+
+            graph = CapturedGraph(run(True), leaves(args), donated=n, warmup=warmup)
+        loss = graph(*leaves(args))
+        self.graphs[key] = graph  # kept once it has run
+        return (loss, *unflatten(state, graph.static[:n]))
 
 
 def main(argv=None) -> int:
@@ -169,9 +236,12 @@ def main(argv=None) -> int:
             ckpt.save(step, {"params": params, "opt": opt, "data": data.state_dict()})
 
     def restore():
+        # fresh tensors, copied into a captured step's buffers; the error
+        # feedback starts from zero again, as it is not checkpointed
         state = ckpt.restore({"params": params, "opt": opt, "data": data.state_dict()})
         data.load_state_dict(state["data"])
-        return data.step, (state["params"], state["opt"], ef)
+        ef0 = init_error_feedback(state["params"]) if args.grad_compression else None
+        return data.step, (state["params"], state["opt"], ef0)
 
     def no_checkpoint():
         raise RuntimeError("no ckpt")

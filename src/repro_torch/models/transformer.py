@@ -356,6 +356,16 @@ def captures_decode(cfg: ArchConfig, device) -> bool:
             and current_mesh() is None)
 
 
+def captures_train(cfg: ArchConfig, device, mesh=None) -> bool:
+    """Whether :func:`repro_torch.launch.train.build_trainer`'s step is
+    captured as a CUDA graph: :func:`captures_decode`'s rule (a CUDA
+    device, no MoE block, no current mesh) and no ``mesh`` given to the
+    trainer.  The MoE reads its expert counts on the host, and a mesh
+    trains DTensors; both train uncaptured.  A static rule, not a fallback:
+    a capture that fails raises."""
+    return mesh is None and captures_decode(cfg, device)
+
+
 def decoder(cfg: ArchConfig, params: dict, cache, tokens: torch.Tensor):
     """:func:`decode_step` over ``cache`` as a function ``step(tokens,
     index) -> logits`` for tokens shaped like ``tokens`` (and of its dtype,

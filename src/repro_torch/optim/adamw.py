@@ -45,22 +45,29 @@ def adamw(
         )
         return AdamWState(_step_zero(params), zeros(params), zeros(params))
 
-    def update(grads, state: AdamWState, params):
+    def update(grads, state: AdamWState, params, in_place: bool = False):
+        """The new ``(params, state)``.  ``in_place`` writes them into
+        ``params`` and ``state`` themselves, leaf by leaf, and returns
+        those (a captured training step's state, which the graph owns):
+        the same float32 expressions in the same order, so the same bits,
+        with one leaf's temporaries alive at a time.  Nothing here reads
+        the device on the host: the step counter, the schedule, the
+        clip's global norm all stay on the device."""
         step = state.step + 1
-        lr_t = lr(step) if callable(lr) else torch.tensor(
-            lr, dtype=torch.float32, device=step.device)
+        lr_t = lr(step) if callable(lr) else torch.full(
+            (), lr, dtype=torch.float32, device=step.device)
 
         if grad_clip_norm is not None:
             gnorm = global_norm(grads)
             scale = torch.clamp(
                 grad_clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
-            # a bf16 leaf times the f32 scale is f32, as in jnp
-            grads = tree_map(lambda g: g.float() * scale, grads)
 
         b1t = 1.0 - torch.pow(b1, step.float())
         b2t = 1.0 - torch.pow(b2, step.float())
 
         def upd(g, m, v, p):
+            if grad_clip_norm is not None:
+                g = g.float() * scale  # a bf16 leaf times the f32 scale is f32, as in jnp
             gf = g.float()
             m_new = b1 * m + (1.0 - b1) * gf
             v_new = b2 * v + (1.0 - b2) * gf * gf
@@ -69,11 +76,16 @@ def adamw(
             delta = mh / (torch.sqrt(vh) + eps) + weight_decay * p.float()
             return (p.float() - lr_t * delta).to(p.dtype), m_new, v_new
 
-        out = [
-            upd(g, m, v, p)
-            for g, m, v, p in zip(leaves(grads), leaves(state.m),
-                                  leaves(state.v), leaves(params))
-        ]
+        quads = zip(leaves(grads), leaves(state.m), leaves(state.v), leaves(params))
+        if in_place:
+            for g, m, v, p in quads:
+                new = upd(g, m, v, p)
+                for dst, src in zip((p, m, v), new):
+                    dst.copy_(src)
+                del new
+            state.step.copy_(step)
+            return params, state
+        out = [upd(g, m, v, p) for g, m, v, p in quads]
         new_p = unflatten(params, [o[0] for o in out])
         new_m = unflatten(params, [o[1] for o in out])
         new_v = unflatten(params, [o[2] for o in out])

@@ -39,14 +39,17 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
 
 
-def compress_grads(grads, ef: EFState):
+def compress_grads(grads, ef: EFState, in_place: bool = False):
     """Quantize grads+residual; returns (quantized tree of (q, scale),
-    new residual)."""
+    new residual).  ``in_place`` writes the new residual into ``ef``'s
+    leaves, one leaf at a time, and returns them (a captured training
+    step's state): the same expressions, so the same bits."""
 
     def one(g, r):
         gf = g.float() + r
         q, s = quantize_int8(gf)
-        return (q, s), gf - dequantize_int8(q, s)
+        new = gf - dequantize_int8(q, s)
+        return (q, s), r.copy_(new) if in_place else new
 
     pairs = [one(g, r) for g, r in zip(leaves(grads), leaves(ef.residual))]
     return (unflatten(grads, [p[0] for p in pairs]),

@@ -815,7 +815,7 @@ def test_lm_training_resumes_bitwise_on_the_card(dev, tmp_path):
     from repro_torch.checkpoint import Checkpointer
     from repro_torch.data import LMDataPipeline
     from repro_torch.launch.train import build_trainer
-    from repro_torch.tree import leaves
+    from repro_torch.tree import leaves, tree_map
 
     cfg = get_config("smollm-135m").reduced(dtype="bfloat16")
     data = LMDataPipeline(cfg, 4, 64, seed=1, device=dev)
@@ -828,8 +828,11 @@ def test_lm_training_resumes_bitwise_on_the_card(dev, tmp_path):
             _, p, o, _ = step(p, o, None, data.peek(s))
         return p, o
 
-    p1, o1 = run(params, opt, range(6))
-    p2, o2 = run(params, opt, range(3))
+    # the captured step owns the state it is given: each run starts from
+    # its own copy, and the straight run's end is copied out of the graph
+    p1, o1 = tree_map(torch.clone, run(*tree_map(torch.clone, (params, opt)), range(6)))
+    p2, o2 = run(*tree_map(torch.clone, (params, opt)), range(3))
+    assert len(step.graphs) == 1
     ck = Checkpointer(tmp_path / "ck")
     ck.save(3, {"params": p2, "opt": o2})
     state = ck.restore({"params": p2, "opt": o2})
@@ -1177,3 +1180,172 @@ def test_captured_prefill_cache_matches_the_eager_replay(dev, arch):
         decode_step(cfg, params, eager, inputs[:, i:i + 1], i)
     for a, b in zip(leaves(captured), leaves(eager)):
         torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# Captured training: Program.train_step and launch.train's step as CUDA graphs
+# ---------------------------------------------------------------------------
+
+
+def _train_program(dev, kind, policy, order, f_in=24, v=300):
+    from repro_torch.core.cost_model import GNNLayerWorkload
+    from repro_torch.core.schedule import ModelSchedule
+    from repro_torch.gnn import make_node_classification_task
+
+    g, dims = _ring(v), [(f_in, 16), (16, 4)]
+    prog = repro_torch.compile(
+        [GNNLayerWorkload(g.nnz, fi, fo) for fi, fo in dims], graph=g, kind=kind,
+        device=dev, schedule=ModelSchedule.from_policies(policy, order, dims, band_size=32))
+    return (prog, prog.init(torch.Generator().manual_seed(0)),
+            make_node_classification_task(g, f_in, 4, device=dev))
+
+
+def _train_executables(prog):
+    return [e for k, e in prog._exec_cache.items() if k[0] == "train"]
+
+
+@pytest.mark.parametrize("kind,policy,order", [("gcn", "sp_opt", "AC"), ("sage", "seq", "CA"),
+                                               ("gin", "sp_generic", "AC"), ("gcn", "pp", "CA")])
+def test_captured_train_steps_equal_the_uncaptured_step(dev, kind, policy, order):
+    """Three captured SGD steps (forward, backward and update in one graph)
+    against the uncaptured step they were captured from: loss and
+    parameters ``torch.equal``, the parameters moved; one capture, and a
+    second epoch of three steps captures nothing."""
+    from repro_torch.api import CapturedForward
+
+    prog, params, task = _train_program(dev, kind, policy, order)
+    before = repro_torch.trace_count()
+    p = q = params
+    for s in range(3):
+        loss, p = prog.train_step(p, *task)
+        (exe,) = _train_executables(prog)
+        want_loss, q = exe.eager(q, prog.adj.indices, prog.adj.weights, *task)
+        assert torch.equal(loss, want_loss), s
+        assert all(torch.equal(a[k], b[k]) for a, b in zip(p, q) for k in a), s
+    assert isinstance(exe, CapturedForward) and exe.graph is not None
+    assert repro_torch.trace_count() == before + 1
+    assert not torch.equal(p[0][sorted(p[0])[-1]], params[0][sorted(params[0])[-1]])
+    for _ in range(3):
+        loss, p = prog.train_step(p, *task)
+    assert repro_torch.trace_count() == before + 1
+    assert bool(torch.isfinite(loss))
+
+
+def test_a_second_train_shape_makes_a_second_graph(dev):
+    """A new feature width is a new shape key: a second capture, whose
+    steps equal its own uncaptured step; the first key's graph is kept."""
+    prog, params, task = _train_program(dev, "gcn", "sp_opt", "AC")
+    wide, wide_params, wide_task = _train_program(dev, "gcn", "sp_opt", "AC", f_in=40)
+    before = repro_torch.trace_count()
+    prog.train_step(params, *task)
+    loss, new = prog.train_step(wide_params, *wide_task)
+    assert repro_torch.trace_count() == before + 2
+    exes = _train_executables(prog)
+    assert len(exes) == 2 and all(e.graph is not None for e in exes)
+    want_loss, want = exes[1].eager(wide_params, prog.adj.indices, prog.adj.weights, *wide_task)
+    assert torch.equal(loss, want_loss)
+    assert all(torch.equal(a[k], b[k]) for a, b in zip(new, want) for k in a)
+
+
+def _lm_trainer(dev, arch, compression, **reduce):
+    from repro_torch.data import LMDataPipeline
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.optim import init_error_feedback
+
+    cfg = get_config(arch).reduced(**reduce)
+    init_opt, step = build_trainer(cfg, lr=1e-3, total_steps=10, grad_compression=compression)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    ef = init_error_feedback(params) if compression else None
+    return cfg, step, (params, init_opt(params), ef), LMDataPipeline(cfg, 4, 64, seed=1, device=dev)
+
+
+@pytest.mark.parametrize("compression", [None, "int8"])
+def test_captured_lm_steps_equal_the_uncaptured_step(dev, compression):
+    """Three captured AdamW steps (reduced smollm-135m, bf16) against the
+    uncaptured step: loss, parameters, both moments, the step counter and
+    the int8 residual ``torch.equal``.  The captured step returns the very
+    tensors it was given (the donated state, written in place), and a call
+    with them copies nothing in."""
+    from repro_torch.tree import leaves, tree_map
+
+    _, step, state, data = _lm_trainer(dev, "smollm-135m", compression, dtype="bfloat16")
+    fresh = tree_map(torch.clone, state)
+    owned = tree_map(torch.clone, state)
+    for s in range(3):
+        loss, *out = step(*owned, data.peek(s))
+        assert all(a is b for a, b in zip(leaves(out), leaves(owned))), s
+        owned = out
+        want_loss, *fresh = step.eager(*fresh, data.peek(s))
+        assert torch.equal(loss, want_loss), s
+    assert len(step.graphs) == 1
+    assert int(owned[1].step) == 3
+    assert all(torch.equal(a, b) for a, b in zip(leaves(owned), leaves(fresh)))
+    assert not torch.equal(leaves(owned[0])[0], leaves(state[0])[0])
+
+
+@pytest.mark.parametrize("arch,layers", [("recurrentgemma-2b", 3), ("xlstm-1.3b", 8)])
+def test_captured_lm_families_equal_the_uncaptured_step(dev, arch, layers):
+    """The RG-LRU scan and the xLSTM loops inside a captured step (reduced
+    width, one period of blocks): three steps ``torch.equal`` to the
+    uncaptured step."""
+    from repro_torch.tree import leaves, tree_map
+
+    _, step, state, data = _lm_trainer(dev, arch, None, n_layers=layers)
+    fresh, owned = tree_map(torch.clone, state), state
+    for s in range(3):
+        loss, *owned = step(*owned, data.peek(s))
+        want_loss, *fresh = step.eager(*fresh, data.peek(s))
+        assert torch.equal(loss, want_loss), s
+    assert len(step.graphs) == 1
+    assert all(torch.equal(a, b) for a, b in zip(leaves(owned), leaves(fresh)))
+
+
+def test_a_second_lm_shape_makes_a_second_graph(dev):
+    from repro_torch.tree import leaves, tree_map
+
+    _, step, state, data = _lm_trainer(dev, "smollm-135m", None)
+    _, *state = step(*state, data.peek(0))
+    short = {k: v[:, :32] for k, v in data.peek(1).items()}
+    kept = tree_map(torch.clone, state)
+    loss, *new = step(*state, short)
+    assert len(step.graphs) == 2
+    want_loss, *want = step.eager(*kept, short)
+    assert torch.equal(loss, want_loss)
+    assert all(torch.equal(a, b) for a, b in zip(leaves(new), leaves(want)))
+
+
+def test_moe_trains_uncaptured(dev):
+    """granite-moe (reduced) reads its expert counts on the host: its step
+    stays uncaptured by the rule, builds nothing and leaves its arguments
+    as they were."""
+    from repro_torch.models.transformer import captures_train
+    from repro_torch.tree import leaves, tree_map
+
+    cfg, step, state, data = _lm_trainer(dev, "granite-moe-1b-a400m", None)
+    assert not captures_train(cfg, dev)
+    kept = tree_map(torch.clone, state)
+    before = repro_torch.trace_count()
+    loss, *new = step(*state, data.peek(0))
+    assert not step.graphs and repro_torch.trace_count() == before
+    assert all(torch.equal(a, b) for a, b in zip(leaves(state), leaves(kept)))
+    assert bool(torch.isfinite(loss))
+
+
+def test_a_cpu_rebind_does_not_replay_the_cards_graph(dev):
+    """A Program bound on the card and rebound on the CPU share one
+    executable cache; the device is part of the key, so the CPU's run and
+    training step run on the CPU (the card's graphs are not replayed
+    there) and agree with the card's within 2e-4."""
+    prog, params, task = _train_program(dev, "gcn", "sp_opt", "AC")
+    cpu = prog.bind(_ring(300), device="cpu")
+    on_cpu = [{k: v.cpu() for k, v in layer.items()} for layer in params]
+    task_cpu = [t.cpu() for t in task]
+    out = {"card": (prog.run(params, task[0]), *prog.train_step(params, *task)),
+           "cpu": (cpu.run(on_cpu, task_cpu[0]), *cpu.train_step(on_cpu, *task_cpu))}
+    logits, loss, new = out["cpu"]
+    assert logits.device.type == loss.device.type == new[0]["w"].device.type == "cpu"
+    torch.testing.assert_close(out["card"][0].cpu(), logits, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(out["card"][1].cpu(), loss, rtol=2e-4, atol=2e-4)
+    for a, b in zip(out["card"][2], new):
+        for k in a:
+            torch.testing.assert_close(a[k].cpu(), b[k], rtol=2e-4, atol=2e-4)

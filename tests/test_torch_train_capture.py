@@ -1,0 +1,337 @@
+"""What lets the port capture its training steps as CUDA graphs, checked on
+the CPU: ``Program.train_step`` and ``launch.train``'s AdamW step free of
+host reads (run under ``FakeTensorMode``, which refuses a data-dependent
+output), the aggregation's backward with its segment sum unchecked and
+equal to the earlier formulation (copied here as its oracle), the state
+written in place with the bits of the fresh-tensor step, the shape key's
+builds equal to the reference's retraces, the rule that keeps a mesh and
+an MoE arch uncaptured, and what the runner does with a step that failed
+after writing its state.  The captures themselves run on the card
+(``tests/test_torch_cuda.py``)."""
+import jax
+import numpy as np
+import pytest
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.utils._python_dispatch import TorchDispatchMode
+
+import repro
+import repro_torch
+from hypothesis_compat import given, settings, st
+from repro.core.cost_model import GNNLayerWorkload as RefWorkload
+from repro.core.schedule import ModelSchedule as RefSchedule
+from repro.gnn.model import make_node_classification_task as ref_task
+from repro.graphs import from_edges as ref_from_edges
+from repro_torch.checkpoint import Checkpointer
+from repro_torch.configs import get_config
+from repro_torch.core.cost_model import GNNLayerWorkload
+from repro_torch.core.schedule import ModelSchedule
+from repro_torch.data import LMDataPipeline
+from repro_torch.gnn import make_node_classification_task, params_from_numpy
+from repro_torch.gnn.layers import aggregate_band
+from repro_torch.graphs import from_edges
+from repro_torch.kernels.common import CudaKernelError
+from repro_torch.launch import train
+from repro_torch.models import init_params
+from repro_torch.models.sharding import use_sharding
+from repro_torch.models.transformer import captures_train
+from repro_torch.optim import init_error_feedback
+from repro_torch.tree import leaves, tree_map
+
+DIMS = [(12, 16), (16, 4)]
+#: every eager dataflow that trains (``pp`` without a mesh is SP-Generic's
+#: band loop; the kernel tier's layers are refused before a build)
+DATAFLOWS = [(p, o) for p in ("seq", "sp_generic", "sp_opt", "pp") for o in ("AC", "CA")]
+LM_ARCHS = ["smollm-135m", "recurrentgemma-2b", "xlstm-1.3b"]
+
+
+# ---------------------------------------------------------------------------
+# _AggregateBand.backward: no host read, the same bits
+# ---------------------------------------------------------------------------
+
+
+def backward_before(indices, weights, x, g):
+    """``_AggregateBand.backward`` as the port computed it before training
+    was captured: its segment sum checked its lengths (``unsafe=False``),
+    which reads the device on the host."""
+    b, d = indices.shape
+    flat = indices.reshape(-1).long()
+    gathered = x.index_select(0, flat).reshape(b, d, -1).to(g.dtype)
+    gw = (gathered * g[:, None, :]).sum(-1).to(weights.dtype)
+    terms = (weights.to(g.dtype)[:, :, None] * g[:, None, :]).reshape(b * d, -1)
+    order = torch.argsort(flat, stable=True)
+    rows = torch.zeros(x.shape[0], dtype=torch.int64)
+    rows.scatter_add_(0, flat, torch.ones_like(flat))
+    gx = torch.segment_reduce(terms[order], "sum", lengths=rows, axis=0)
+    return gw, gx.to(x.dtype)
+
+
+def band(seed, b, d, v, f):
+    """A band of ``b`` rows of ``d`` slots over ``v`` source rows of width
+    ``f``: rows of every degree from 0 to ``d`` (padding slots point at row
+    0 with weight 0), one hub source row most slots point at, source rows
+    no slot points at, and the upstream gradient ``g``."""
+    rng = np.random.default_rng(seed)
+    idx = np.zeros((b, d), np.int64)
+    wts = np.zeros((b, d), np.float32)
+    for r in range(b):
+        deg = int(rng.integers(0, d + 1))
+        hub = rng.random(deg) < 0.5
+        idx[r, :deg] = np.where(hub, v - 1, rng.integers(0, max(v // 2, 1), deg))
+        wts[r, :deg] = rng.normal(size=deg)
+    x = rng.normal(size=(v, f)).astype(np.float32)
+    g = rng.normal(size=(b, f)).astype(np.float32)
+    return (torch.from_numpy(idx.astype(np.int32)), torch.from_numpy(wts),
+            torch.from_numpy(x), torch.from_numpy(g))
+
+
+def grads_now(idx, wts, x, g):
+    w, xs = wts.clone().requires_grad_(), x.clone().requires_grad_()
+    return torch.autograd.grad(aggregate_band(idx, w, xs), (w, xs), g)
+
+
+def assert_backward_equals_the_oracle(seed, b, d, v, f):
+    idx, wts, x, g = band(seed, b, d, v, f)
+    gw, gx = grads_now(idx, wts, x, g)
+    want_w, want_x = backward_before(idx, wts, x, g)
+    assert torch.equal(gw, want_w) and torch.equal(gx, want_x)
+
+
+@pytest.mark.parametrize("seed,b,d,v,f", [
+    (0, 1, 1, 1, 1), (1, 8, 3, 5, 4), (2, 40, 7, 33, 16), (3, 128, 16, 64, 8),
+    (4, 17, 32, 200, 3), (5, 64, 1, 64, 12), (6, 300, 9, 2, 5),
+])
+def test_aggregate_backward_equals_the_earlier_formulation(seed, b, d, v, f):
+    assert_backward_equals_the_oracle(seed, b, d, v, f)
+
+
+@settings(max_examples=60, deadline=None)
+@given(b=st.integers(1, 64), d=st.integers(1, 24), v=st.integers(1, 80),
+       f=st.integers(1, 20), seed=st.integers(0, 2**31 - 1))
+def test_aggregate_backward_property(b, d, v, f, seed):
+    assert_backward_equals_the_oracle(seed, b, d, v, f)
+
+
+class SegmentSums(TorchDispatchMode):
+    """Records the ``unsafe`` flag of every ``segment_reduce`` and every op
+    that reads a tensor on the host."""
+
+    def __init__(self):
+        super().__init__()
+        self.unsafe, self.host_reads = [], []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func is torch.ops.aten.segment_reduce.default:
+            at = [a.name for a in func._schema.arguments].index("unsafe")
+            self.unsafe.append(kwargs.get("unsafe", args[at] if len(args) > at else False))
+        if func in (torch.ops.aten._local_scalar_dense.default, torch.ops.aten.nonzero.default):
+            self.host_reads.append(func)
+        return func(*args, **kwargs)
+
+
+def test_aggregate_backward_runs_its_segment_sum_unchecked():
+    """The checks ``segment_reduce`` skips when ``unsafe`` are host reads
+    inside its kernel, which neither ``FakeTensorMode`` nor a dispatch mode
+    sees; so the backward must call it unchecked (the oracle does not),
+    and read nothing else on the host."""
+    idx, wts, x, g = band(3, 40, 7, 33, 16)
+    with SegmentSums() as mode:
+        grads_now(idx, wts, x, g)
+    assert mode.unsafe == [True] and not mode.host_reads
+    with SegmentSums() as mode:
+        backward_before(idx, wts, x, g)
+    assert mode.unsafe == [False]
+    with FakeTensorMode(allow_non_fake_inputs=True) as fake:
+        gw, gx = grads_now(*(fake.from_tensor(t) for t in (idx, wts, x, g)))
+        assert gw.shape == wts.shape and gx.shape == x.shape
+
+
+# ---------------------------------------------------------------------------
+# Program.train_step: no host read, one build per shape key
+# ---------------------------------------------------------------------------
+
+
+def ring(v):
+    src = np.arange(v)
+    return (v, np.concatenate([src, (src + 1) % v, src]),
+            np.concatenate([(src + 1) % v, src, (src * 7) % v]))
+
+
+@pytest.mark.parametrize("policy,order", DATAFLOWS)
+@pytest.mark.parametrize("kind", ["gcn", "sage", "gin"])
+def test_gnn_train_step_reads_nothing_on_the_host(kind, policy, order):
+    g = from_edges(*ring(40))
+    prog = repro_torch.compile(
+        [GNNLayerWorkload(g.nnz, fi, fo) for fi, fo in DIMS], graph=g, kind=kind,
+        device="cpu", schedule=ModelSchedule.from_policies(policy, order, DIMS, band_size=16))
+    params = prog.init(torch.Generator().manual_seed(0))
+    task = make_node_classification_task(g, 12, 4, device="cpu")
+    with SegmentSums() as mode:
+        want_loss, want = prog.train_step(params, *task)
+    assert mode.unsafe and all(mode.unsafe) and not mode.host_reads
+    with FakeTensorMode(allow_non_fake_inputs=True) as fake:
+        loss, new = prog.train_step(tree_map(fake.from_tensor, params),
+                                    *(fake.from_tensor(t) for t in task))
+        assert loss.shape == want_loss.shape
+        assert [{k: v.shape for k, v in layer.items()} for layer in new] == \
+            [{k: v.shape for k, v in layer.items()} for layer in want]
+
+
+def train_sequence(compile_, from_edges_, task_, init, count):
+    """Builds counted by each of five ``train_step`` calls: one shape, the
+    same shape again, a graph with another node count, another lr, another
+    feature width (the first layer's parameters and the features)."""
+    deltas = []
+
+    def step(prog, params, task, lr=0.05):
+        before = count()
+        prog.train_step(params, *task, lr=lr)
+        deltas.append(count() - before)
+
+    def program(v, f_in):
+        g = from_edges_(*ring(v))
+        return g, compile_([(f_in, 16), (16, 4)], g)
+
+    g, prog = program(40, 12)
+    params = init(prog)
+    step(prog, params, task_(g, 12))
+    step(prog, params, task_(g, 12))
+    g48, prog48 = program(48, 12)
+    step(prog48, params, task_(g48, 12))
+    step(prog, params, task_(g, 12), lr=0.01)
+    _, prog20 = program(40, 20)
+    step(prog, init(prog20), task_(g, 20))
+    return deltas
+
+
+def test_train_step_builds_where_the_reference_retraces():
+    ref = train_sequence(
+        lambda dims, g: repro.compile(
+            [RefWorkload(g.nnz, fi, fo) for fi, fo in dims], graph=g,
+            schedule=RefSchedule.from_policies("sp_opt", "AC", dims, band_size=16)),
+        ref_from_edges, lambda g, f: ref_task(g, f, 4, seed=0),
+        lambda prog: prog.init(jax.random.PRNGKey(0)), repro.trace_count)
+    port = train_sequence(
+        lambda dims, g: repro_torch.compile(
+            [GNNLayerWorkload(g.nnz, fi, fo) for fi, fo in dims], graph=g, device="cpu",
+            schedule=ModelSchedule.from_policies("sp_opt", "AC", dims, band_size=16)),
+        from_edges, lambda g, f: make_node_classification_task(g, f, 4, seed=0, device="cpu"),
+        lambda prog: params_from_numpy(
+            jax.tree_util.tree_map(np.asarray, prog.init(torch.Generator().manual_seed(0))),
+            device="cpu"),
+        repro_torch.trace_count)
+    assert ref == [1, 0, 1, 1, 1]
+    assert port == ref
+
+
+# ---------------------------------------------------------------------------
+# launch.train's step: no host read, the state written in place, the rule
+# ---------------------------------------------------------------------------
+
+
+def lm_state(arch, compression, seed=0):
+    cfg = get_config(arch).reduced()
+    init_opt, step = train.build_trainer(cfg, lr=1e-3, total_steps=10,
+                                         grad_compression=compression)
+    params = init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+    ef = init_error_feedback(params) if compression else None
+    data = LMDataPipeline(cfg, 2, 8, seed=seed, device="cpu")
+    return cfg, step, (params, init_opt(params), ef), data
+
+
+@pytest.mark.parametrize("compression", [None, "int8"])
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_train_step_reads_nothing_on_the_host(arch, compression):
+    """The step a capture records (its state written in place) under
+    ``FakeTensorMode``."""
+    _, step, state, data = lm_state(arch, compression)
+    step.eager(*state, data.peek(0))  # the tables the model caches made real
+    with FakeTensorMode(allow_non_fake_inputs=True) as fake:
+        p, o, e = tree_map(fake.from_tensor, state)
+        out = step._step(p, o, e, tree_map(fake.from_tensor, data.peek(0)), True)
+        assert out[0].shape == ()
+        assert [t.shape for t in leaves(out[1:])] == [t.shape for t in leaves(state)]
+
+
+@pytest.mark.parametrize("compression", [None, "int8"])
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_state_written_in_place_equals_the_fresh_step(arch, compression):
+    """Three steps that write params, moments, step counter and residual
+    into the state they are given (what the captured graph does) against
+    three of the uncaptured step: the same bits, and the same tensors
+    returned as were given."""
+    _, step, state, data = lm_state(arch, compression)
+    fresh = state
+    owned = tree_map(torch.clone, state)
+    for s in range(3):
+        batch = data.peek(s)
+        loss_f, *fresh = step.eager(*fresh, batch)
+        loss_o, *out = step._step(*owned, batch, True)
+        assert all(a is b for a, b in zip(leaves(out), leaves(owned)))
+        assert torch.equal(loss_f, loss_o), s
+    assert int(owned[1].step) == 3
+    for a, b in zip(leaves(fresh), leaves(owned)):
+        assert torch.equal(a, b)
+    assert not all(torch.equal(a, b) for a, b in zip(leaves(state[0]), leaves(owned[0])))
+
+
+def test_lm_trainer_is_uncaptured_on_the_cpu():
+    """On the CPU the step is the uncaptured one: it builds no graph and
+    leaves the state it was given untouched."""
+    _, step, state, data = lm_state("smollm-135m", "int8")
+    kept = tree_map(torch.clone, state)
+    loss, *new = step(*state, data.peek(0))
+    assert not step.graphs
+    assert all(torch.equal(a, b) for a, b in zip(leaves(state), leaves(kept)))
+    want_loss, *want = step.eager(*kept, data.peek(0))
+    assert torch.equal(loss, want_loss)
+    assert all(torch.equal(a, b) for a, b in zip(leaves(new), leaves(want)))
+
+
+def test_training_captures_by_a_static_rule():
+    cuda = torch.device("cuda", 0)
+    for arch in LM_ARCHS + ["tinyllama-1.1b", "olmo-1b"]:
+        assert captures_train(get_config(arch), cuda), arch
+        assert not captures_train(get_config(arch), "cpu"), arch
+        assert not captures_train(get_config(arch), cuda, mesh=object()), arch
+        with use_sharding(object(), None):
+            assert not captures_train(get_config(arch), cuda), arch
+    for arch in ("granite-moe-1b-a400m", "granite-moe-3b-a800m"):
+        assert not captures_train(get_config(arch), cuda), arch
+
+
+def test_a_step_that_failed_after_writing_its_state_is_not_rerun(tmp_path, monkeypatch):
+    """A captured step whose replay fails may leave its state half written
+    (the graph owns it).  Here the fifth step writes its new state into its
+    arguments, as a replay does, then raises ``CudaKernelError``: the
+    runner re-raises it at once, with no retry that would start from the
+    written state; ``launch.train`` run again with the same flags resumes
+    from its latest checkpoint and ends bit for bit where a straight run
+    ends."""
+    flags = ["--reduced", "--device", "cpu", "--batch", "2", "--seq", "16",
+             "--checkpoint-every", "2", "--steps", "6"]
+    calls = []
+    real = train.TrainStep.__call__
+
+    def failing(self, params, opt, ef, batch):
+        calls.append(int(opt.step))
+        if len(calls) == 5:
+            self._step(params, opt, ef, batch, True)
+            raise CudaKernelError("CUDA graph replay failed: injected")
+        return real(self, params, opt, ef, batch)
+
+    monkeypatch.setattr(train.TrainStep, "__call__", failing)
+    with pytest.raises(CudaKernelError, match="injected"):
+        train.main(flags + ["--checkpoint-dir", str(tmp_path / "a")])
+    assert calls == [0, 1, 2, 3, 4]
+    monkeypatch.undo()
+    assert Checkpointer(tmp_path / "a").latest_step() == 4
+    assert train.main(flags + ["--checkpoint-dir", str(tmp_path / "a")]) == 0
+    assert train.main(flags + ["--checkpoint-dir", str(tmp_path / "b")]) == 0
+    cfg = get_config("smollm-135m").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    init_opt, _ = train.build_trainer(cfg)
+    like = {"params": params, "opt": init_opt(params), "data": {"seed": 0, "step": 0}}
+    a, b = (Checkpointer(tmp_path / d).restore(like, step=6) for d in ("a", "b"))
+    assert all(torch.equal(x, y) for x, y in zip(leaves(a), leaves(b)))
