@@ -107,10 +107,12 @@ Phases, one JSON line each (no phase's error is caught):
                 recurrentgemma-2b (3 layers) and xlstm-1.3b (8 layers) at
                 published widths, batch 2 x 128: 3 captured steps
                 ``torch.equal`` to uncaptured, warm step ms of each.
-                granite-moe-1b-a400m at its published widths (batch 2, seq
-                512), uncaptured by rule: two steps, the second also run
-                from the step-1 state saved and restored by the
-                ``Checkpointer``, ``torch.equal`` to the straight one; cora
+                granite-moe-1b-a400m at its published widths and depth
+                (batch 2, seq 512), captured: 3 steps ``torch.equal`` to
+                uncaptured, warm step ms of each, live peak and graph pool,
+                and step 8 run from the step-7 state saved and restored by
+                the ``Checkpointer`` and from a second copy, each
+                ``torch.equal`` to the straight one; cora
                 GCN under a ``pp`` schedule trained through the two-stream
                 Parallel Pipeline (``mesh=[cuda:0, cuda:0]``, and two cards
                 where there are two): the loss equal to ``mesh=None``'s,
@@ -132,7 +134,12 @@ Phases, one JSON line each (no phase's error is caught):
                 plain route and 8 decode steps against the prefill (relative
                 L2), prefill / replay / decode walls against their bounds,
                 peak memory; recurrentgemma also at 1 x 4096 tokens, where
-                its 2048 window masks.
+                its 2048 window masks.  granite-moe decodes captured: every
+                position's logits ``torch.equal`` to ``decode_step`` run
+                uncaptured, the greedy tokens equal, both walls; its
+                grouped expert product against the per-expert loop (bf16
+                relative L2 ``MOE_BF16_REL_L2``, f32 ``TOL_MOE_F32``), and
+                ``moe_ragged`` under ``set_sync_debug_mode("error")``.
 12. sharded   — the LM on a ``(data, model)`` device mesh (DTensor, one
                 process a card): granite-moe-1b-a400m at full width, bf16,
                 on a (1, 1) NCCL mesh in this process — the sharded prefill
@@ -228,6 +235,7 @@ import atexit
 import contextlib
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -295,6 +303,14 @@ DP_GRAD_REL_L2 = 1e-4
 # ``LM_BF16_REL_L2`` (0.0104 on one H100); the free-routing logits are read.
 SHARDED_F32_REL_L2 = 1e-3
 DECODE_F32_REL_L2_DEFAULT = 1e-3
+# granite-moe's grouped expert product (three grouped GEMMs over the
+# expert-sorted rows, the ends read on the device) against the per-expert
+# loop it replaced, on the same rows and weights: bf16 as a relative L2
+# error (the two may accumulate a row's products in another order, each
+# rounded to bf16 once), float32 at the reference's MoE tolerance
+# (tests/test_models.py)
+MOE_BF16_REL_L2 = 2e-2
+TOL_MOE_F32 = dict(rtol=1e-4, atol=1e-5)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # dense, per s
 
@@ -2461,81 +2477,140 @@ def pp_train(dev, cora, spec, x, labels, mask) -> None:
 
 
 def moe_train(dev, counters, batch=2, seq=512) -> None:
-    """granite-moe-1b-a400m at its published widths (bf16, 32 experts top
-    8): two AdamW steps through ``launch.train``'s step (``lm_loss`` with
-    the router's aux loss, the ragged expert products and their
-    backward), the state after step 1 saved and restored by the
-    ``Checkpointer``, and step 2 from the restored state ``torch.equal`` to
-    step 2 of the straight run, parameters and optimizer state."""
+    """granite-moe-1b-a400m at its published widths and depth (bf16, 24
+    layers, 32 experts top 8) trained through ``launch.train``'s step, a
+    CUDA graph (``lm_loss`` with the router's aux loss, the grouped expert
+    products and their backward inside it), at ``batch`` x ``seq``: 3
+    uncaptured steps (``TrainStep.eager``), then 3 captured ones from the
+    same start, ``torch.equal`` in every loss and in every leaf of params,
+    m, v and the step counter; then 4 warm steps of each, timed, with the
+    peak allocated over them and the graph's pool.  The captured state
+    after step 7 is saved by the ``Checkpointer`` and step 8 run straight;
+    then the state restored from the checkpoint, and after it a second
+    copy of the saved state, are each written into the graph's buffers and
+    step 8 run again: both ``torch.equal`` to the straight step.  One state
+    lives on the card at a time: the start, the uncaptured result, the
+    saved state and the straight result wait on the host."""
     from repro_torch.checkpoint import Checkpointer
     from repro_torch.configs import get_config
     from repro_torch.data import LMDataPipeline
     from repro_torch.launch import train
     from repro_torch.models import count_params, init_params
-    from repro_torch.tree import leaf_paths, leaves
-
     from repro_torch.models.transformer import captures_train
+    from repro_torch.tree import leaf_paths, leaves, tree_map
+
+    def differing(on_card, on_host) -> list:  # leaf by leaf: no second state on the card
+        return ["/".join(map(str, path)) for (path, a), b in
+                zip(leaf_paths(on_card), leaves(on_host)) if not torch.equal(a, b.to(dev))]
+
+    def to_host(t):
+        return t.to("cpu", copy=True)
 
     arch = "granite-moe-1b-a400m"
     cfg = get_config(arch)
-    check(not captures_train(cfg, dev), f"{arch} train: captured, though it has MoE blocks")
+    check(captures_train(cfg, dev), f"{arch} train: not captured by the rule")
     root = Path(__file__).resolve().parent / "build" / "train_moe_ckpt"
     shutil.rmtree(root, ignore_errors=True)
-    torch.cuda.reset_peak_memory_stats()
     reset_counts(counters)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     n = count_params(params)
-    init_opt, step_fn = train.build_trainer(cfg, lr=3e-4, total_steps=2)
+    init_opt, step_fn = train.build_trainer(cfg, lr=3e-4, total_steps=10)
     data = LMDataPipeline(cfg, batch, seq, seed=0, device=dev)
-    step_ms, losses = [], []
+    box = {"state": (params, init_opt(params))}
+    del params
+    start = tree_map(to_host, box["state"])
+    runs = {}
+    for kind, fn in (("uncaptured", step_fn.eager), ("captured", step_fn)):
+        if kind == "captured":
+            box["state"] = tree_map(lambda t: t.to(dev), start)
+            del start
+        torch.cuda.reset_peak_memory_stats()
 
-    def step(p, o, s):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        loss, p, o, _ = step_fn(p, o, None, data.peek(s))
-        end.record()
-        end.synchronize()
-        step_ms.append(start.elapsed_time(end))
-        losses.append(float(loss))
-        check(bool(torch.isfinite(loss)), f"{arch} train: non-finite loss")
-        return p, o
+        def one(s, fn=fn):
+            loss, *st, _ = fn(*box["state"], None, data.peek(s))
+            box["state"] = tuple(st)
+            return loss
 
-    params, opt = step(params, init_opt(params), 0)
+        losses, first_ms = [], []
+        for s in range(3):
+            t0 = time.perf_counter()
+            losses.append(one(s))
+            torch.cuda.synchronize()
+            first_ms.append((time.perf_counter() - t0) * 1e3)
+        first_peak = torch.cuda.max_memory_allocated() / 2**30
+        if kind == "uncaptured":
+            after3 = tree_map(to_host, box["state"])
+            differ = []
+        else:
+            differ = differing(box["state"], after3)
+            del after3
+        torch.cuda.reset_peak_memory_stats()
+        runs[kind] = {"losses": torch.stack(losses).cpu(), "first_steps_ms": first_ms,
+                      "peak_allocated_gib_first_3": first_peak,
+                      **timed_steps(lambda s: one(3 + s), 4),
+                      "peak_allocated_gib_warm": torch.cuda.max_memory_allocated() / 2**30}
+        if kind == "uncaptured":
+            box["state"] = None
+            torch.cuda.empty_cache()
+    if not torch.equal(runs["captured"]["losses"], runs["uncaptured"]["losses"]):
+        differ.append("losses")
+    for r in runs.values():
+        r["losses"] = r["losses"].tolist()
+        check(all(math.isfinite(v) for v in r["losses"]), f"{arch} train: non-finite loss")
+    pool = graph_pool_bytes(step_fn.graphs.values())
+    live = torch.cuda.memory_allocated(dev) / 2**30
+
+    # resume: the state after step 7 saved, step 8 straight, then from the
+    # restored state and from a second copy, each written into the buffers
+    state = box.pop("state")
     ck = Checkpointer(root)
     t0 = time.perf_counter()
-    ck.save(1, {"params": params, "opt": opt})
+    ck.save(7, {"params": state[0], "opt": state[1]})
     save_s = time.perf_counter() - t0
-    straight = step(params, opt, 1)
-    del params, opt
+    saved = tree_map(to_host, state)
+    loss, *_ = step_fn(*state, None, data.peek(7))
+    straight = tree_map(to_host, (loss, *state))
+
+    def step8_from(host_state) -> list:
+        for buf, t in zip(leaves(state), leaves(host_state)):
+            buf.copy_(t)
+        loss, *_ = step_fn(*state, None, data.peek(7))
+        return differing((loss, *state), straight)
+
     t0 = time.perf_counter()
-    state = ck.restore({"params": straight[0], "opt": straight[1]}, step=1)
+    restored = ck.restore({"params": saved[0], "opt": saved[1]}, step=7)
     restore_s = time.perf_counter() - t0
     shutil.rmtree(root, ignore_errors=True)
-    resumed = step(state["params"], state["opt"], 1)
-    del state
+    resume_differ = step8_from((restored["params"], restored["opt"]))
+    del restored
+    repeat_differ = step8_from(saved)
+    del saved, straight
     counts = {k: c.launches for k, c in counters.items()}
-    differ = ["/".join(map(str, path))
-              for (path, a), b in zip(leaf_paths({"p": resumed[0], "o": resumed[1]}),
-                                      leaves({"p": straight[0], "o": straight[1]}))
-              if not torch.equal(a, b)]
+    ms = {k: v["step_ms_median"] for k, v in runs.items()}
     emit({"phase": "train", "model": arch, "depth": cfg.n_layers, "d_model": cfg.d_model,
           "experts": [cfg.moe.n_experts, cfg.moe.top_k], "dtype": cfg.dtype, "params": n,
-          "captured": False, "graphs": len(step_fn.graphs),
-          "batch": batch, "seq": seq, "losses": losses, "step_ms": step_ms,
-          "tokens_per_s_step2": batch * seq / step_ms[1] * 1e3,
+          "captured": True, "graphs": len(step_fn.graphs), "batch": batch, "seq": seq,
+          "captured_equals_uncaptured_3_steps": not differ, "leaves_differing": differ[:8],
+          "n_leaves_differing": len(differ), "step_ms_median": ms,
+          "tokens_per_s": {k: batch * seq / v * 1e3 for k, v in ms.items()},
           "bound_ms_6NT_bf16": 6 * cfg.active_param_count() * batch * seq
           / PEAK_OPS[torch.bfloat16] * 1e3,
+          **runs, "graph_pool_bytes": pool, "live_allocated_gib_after_steps": live,
           "checkpoint_save_s": save_s, "checkpoint_restore_s": restore_s,
-          "resumed_step_equals_straight": not differ, "leaves_differing": differ[:8],
-          "n_leaves_differing": len(differ),
-          "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
-          "launches": counts, "card": card_line(), "ok": not differ})
+          "resumed_step_equals_straight": not resume_differ,
+          "resume_leaves_differing": resume_differ[:8],
+          "repeat_step_bit_identical": not repeat_differ,
+          "repeat_leaves_differing": repeat_differ[:8],
+          "launches": counts, "card": card_line(),
+          "ok": not (differ or resume_differ or repeat_differ)})
     check(all(v == 0 for v in counts.values()), f"{arch} train launched kernels: {counts}")
-    check(not step_fn.graphs, f"{arch} train: {len(step_fn.graphs)} graphs captured")
-    check(not differ, f"{arch} train: the resumed step differs in {len(differ)} leaves, "
-          f"first {differ[:4]}")
-    del straight, resumed
+    check(len(step_fn.graphs) == 1, f"{arch} train: {len(step_fn.graphs)} graphs, not 1")
+    check(not differ, f"{arch} train: captured steps differ from uncaptured: {differ[:4]}")
+    check(not resume_differ, f"{arch} train: the resumed step differs in "
+          f"{len(resume_differ)} leaves, first {resume_differ[:4]}")
+    check(not repeat_differ, f"{arch} train: the repeated step differs in {repeat_differ[:4]}")
+    del state, step_fn, box
+    gc.collect()
     torch.cuda.empty_cache()
 
 
@@ -2675,6 +2750,145 @@ def decode_vs_prefill(cfg, params, prompts, logits, n) -> list:
     return errs
 
 
+def moe_grouped_checks(dev, tokens=1024, seed=0) -> dict:
+    """granite-moe-1b-a400m's grouped expert product
+    (``moe._grouped_product``) at its widths (d 1024, ff 512, 32 experts,
+    top 8) on the ``tokens`` x 8 expert-sorted rows of a 2 x 512 batch,
+    four experts left empty, against the per-expert loop it replaced
+    (``moe._grouped_product_plain``): the output and the gradients of the
+    rows and the three weights, bf16 by relative L2 at
+    ``MOE_BF16_REL_L2``, float32 at ``TOL_MOE_F32``; each route's forward
+    time.  Then ``moe_ragged``'s forward and backward under
+    ``torch.cuda.set_sync_debug_mode("error")``: held in bf16 (no host
+    read, what lets a CUDA graph hold the MoE), recorded in float32 (its
+    route reads the ends on the host: ``captures_decode``'s dtype rule)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = get_config("granite-moe-1b-a400m")
+    e, d, ff = cfg.moe.n_experts, cfg.d_model, cfg.d_ff
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ids = torch.randint(0, e - 4, (tokens * cfg.moe.top_k,), generator=gen, device=dev)
+    ids = ids + 1 + (ids >= 4).long() * 2  # experts 0, 5, 6 and 31 get no row
+    ends = torch.cumsum(torch.bincount(ids, minlength=e), 0).to(torch.int32)
+    rows = ids.numel()
+    out = {"rows": rows, "experts": e, "empty_experts": [0, 5, 6, 31]}
+    for dtype in (torch.bfloat16, torch.float32):
+        xs = torch.randn((rows, d), generator=gen, device=dev).to(dtype)
+        ws = [(torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+              for shape, scale in (((e, d, ff), d ** -0.5), ((e, d, ff), d ** -0.5),
+                                   ((e, ff, d), ff ** -0.5))]
+        gy = torch.randn((rows, d), generator=gen, device=dev).to(dtype)
+        got = {}
+        for route, fn in (("grouped", moe._grouped_product),
+                          ("plain", moe._grouped_product_plain)):
+            args = [t.clone().requires_grad_() for t in [xs, *ws]]
+            y = fn(cfg, args[0], ends, *args[1:])
+            y.backward(gy)
+            got[route] = [y.detach()] + [a.grad for a in args]
+            with torch.no_grad():
+                got[route + "_ms"] = event_ms(lambda: fn(cfg, xs, ends, *ws), 10)
+        names = ["out", "d_rows", "d_gate", "d_up", "d_down"]
+        rec = {"rel_l2": {n: rel_l2(a, b) for n, a, b in zip(names, got["grouped"], got["plain"])},
+               "max_abs": {n: float((a.float() - b.float()).abs().max())
+                           for n, a, b in zip(names, got["grouped"], got["plain"])},
+               "empty_expert_grads_zero": all(
+                   bool((g[out["empty_experts"]] == 0).all()) for g in got["grouped"][2:]),
+               "grouped_forward_ms": got["grouped_ms"], "plain_forward_ms": got["plain_ms"]}
+        if dtype == torch.bfloat16:
+            ok = max(rec["rel_l2"].values()) <= MOE_BF16_REL_L2
+        else:
+            ok = all(torch.allclose(a, b, **TOL_MOE_F32)
+                     for a, b in zip(got["grouped"], got["plain"]))
+        rec["ok"] = ok and rec["empty_expert_grads_zero"]
+        out[str(dtype).removeprefix("torch.")] = rec
+        check(rec["ok"], f"grouped expert product vs the per-expert loop ({dtype}): {rec}")
+        del xs, ws, gy, got
+
+    for dtype in ("bfloat16", "float32"):
+        c = cfg.with_(dtype=dtype)
+        p = {k: v.requires_grad_() for k, v in moe.init_moe(c, gen, dev).items()}
+        x = (torch.randn((2, tokens // 2, d), generator=gen, device=dev) * 0.5).to(
+            p["experts_gate"].dtype).requires_grad_()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y, aux = moe.moe_ragged(c, p, x)
+            (y.float().square().mean() + aux).backward()
+            synced = None
+        except RuntimeError as err:
+            synced = str(err)[:200]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        out[f"sync_free_{dtype}"] = synced is None
+        if synced:
+            out[f"sync_{dtype}"] = synced
+        del p, x
+    check(out["sync_free_bfloat16"],
+          f"moe_ragged synchronised in bf16 under sync debug: {out.get('sync_bfloat16')}")
+    return out
+
+
+def decode_twins(cfg, params, prompts, new_tokens, generated) -> dict:
+    """The prompt replayed and ``new_tokens`` greedy tokens decoded twice,
+    each on a fresh cache: through the captured ``decode_step``
+    (``models.transformer.decoder``, as ``generate`` runs it) and through
+    ``decode_step`` uncaptured.  Held: every position's logits
+    ``torch.equal`` between the two, and the greedy tokens equal to each
+    other and to ``generate``'s (``generated``).  Read: each run's first
+    call (the capture's warm-up and capture), prompt replay and decode
+    step walls."""
+    from repro_torch.models import decode_step, forward, init_cache
+    from repro_torch.models.transformer import decoder
+
+    dev = prompts.device
+    b, s = prompts.shape[:2]
+    logits, _ = forward(cfg, params, prompts)
+    first = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+    del logits
+    runs = {}
+    for kind in ("captured", "uncaptured"):
+        cache = init_cache(cfg, b, s + new_tokens, dev)
+        if kind == "captured":
+            step = decoder(cfg, params, cache, prompts[:, :1])
+        else:
+            def step(tok, i, cache=cache):
+                return decode_step(cfg, params, cache, tok, i)[0]
+        sync(dev)
+        t0 = time.perf_counter()
+        out = [step(prompts[:, :1], 0)]
+        sync(dev)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        for i in range(1, s):
+            out.append(step(prompts[:, i:i + 1], i))
+        sync(dev)
+        replay_s = time.perf_counter() - t0
+        tok, toks, ms = first, [], []
+        for i in range(new_tokens):
+            t0 = time.perf_counter()
+            out.append(step(tok, s + i))
+            tok = torch.argmax(out[-1][:, -1], dim=-1)[:, None].to(torch.int32)
+            toks.append(tok)
+            sync(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        runs[kind] = {"logits": out, "tokens": torch.cat(toks, dim=1), "first_call_ms": first_ms,
+                      "replay_s": replay_s, "decode_step_ms_median": statistics.median(ms)}
+        del step, cache
+    c, u = runs["captured"], runs["uncaptured"]
+    differ = [i for i, (x, y) in enumerate(zip(c["logits"], u["logits"])) if not torch.equal(x, y)]
+    rec = {"positions": len(c["logits"]), "logits_positions_differing": differ[:8],
+           "logits_equal": not differ,
+           "tokens_equal": torch.equal(c["tokens"], u["tokens"]),
+           "generate_tokens_equal": torch.equal(generated, u["tokens"]),
+           **{f"{k}_{kind}": runs[kind][k] for kind in runs
+              for k in ("first_call_ms", "replay_s", "decode_step_ms_median")}}
+    check(not differ, f"{cfg.name}: captured decode logits differ from uncaptured at "
+          f"positions {differ[:8]}")
+    check(rec["tokens_equal"] and rec["generate_tokens_equal"],
+          f"{cfg.name}: greedy tokens differ between captured, uncaptured and generate")
+    return rec
+
+
 def phase_lm_families(dev, counters, batch=2, prompt_len=128, new_tokens=8) -> dict:
     """The MoE, RG-LRU/local-attention and xLSTM families at full published
     width in bf16 (granite-moe-1b-a400m, recurrentgemma-2b, xlstm-1.3b),
@@ -2689,7 +2903,9 @@ def phase_lm_families(dev, counters, batch=2, prompt_len=128, new_tokens=8) -> d
     bf16 dense peak) and a decode step against parameter bytes over the
     memory rate; peak memory.  recurrentgemma also runs one ``forward`` at
     batch 1 x 4096 tokens, where its 2048 window masks, kernel route
-    against plain."""
+    against plain.  granite-moe's decode is captured by the rule and held
+    bitwise against the uncaptured one (:func:`decode_twins`), and its
+    grouped expert product checked (:func:`moe_grouped_checks`)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.shapes import ShapeSuite
     from repro_torch.kernels.common import measure_wall
@@ -2717,6 +2933,11 @@ def phase_lm_families(dev, counters, batch=2, prompt_len=128, new_tokens=8) -> d
         counts = {k: c.launches for k, c in counters.items()}
         for k in launches:
             launches[k] += counts[k]
+        moe_rec = {}
+        if "moe" in cfg.layer_kinds:
+            check(captures_decode(cfg, dev), f"{arch}: decode_step not captured by the rule")
+            moe_rec = {"decode_twins": decode_twins(cfg, params, prompts, new_tokens, toks),
+                   "grouped_product": moe_grouped_checks(dev)}
         check(counts["flash_attention"] == n_attn,
               f"{arch}: flash_attention launched {counts['flash_attention']} times in "
               f"one forward of {n_attn} attention layers")
@@ -2764,7 +2985,7 @@ def phase_lm_families(dev, counters, batch=2, prompt_len=128, new_tokens=8) -> d
                "decode_captured": captures_decode(cfg, dev),
                "prefill_logits_rel_l2_vs_plain": prefill_err,
                "decode_vs_prefill_rel_l2": decode_err, "rel_l2_limit": LM_BF16_REL_L2,
-               "f32_decode_rel_l2_limit": decode_limit}
+               "f32_decode_rel_l2_limit": decode_limit, **moe_rec}
         if arch == "recurrentgemma-2b":
             long_in = make_inputs(cfg, 1, 4096, seed=1, device=dev)
             before = counters["flash_attention"].launches

@@ -9,9 +9,10 @@ On the CPU, at smoke scale:
 The prefill ``forward`` runs each layer's attention through the
 flash-attention kernel on a CUDA device; decode attention is plain
 PyTorch, as in the reference.  On a card the prompt replay and the
-per-token steps replay one captured ``decode_step`` (a CUDA graph, for an
-arch without MoE blocks: ``models.transformer.decoder``), as the reference
-jits it; the prefill ``forward``, sampling and the argmax run uncaptured.
+per-token steps replay one captured ``decode_step`` (a CUDA graph, for
+every arch but a float32 MoE: ``models.transformer.decoder``), as the
+reference jits it; the prefill ``forward``, sampling and the argmax run
+uncaptured.
 """
 from __future__ import annotations
 

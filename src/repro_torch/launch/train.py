@@ -112,24 +112,25 @@ class TrainStep:
     ``jax.jit(step_fn, donate_argnums=(0, 1, 2))``.
 
     Where :func:`~repro_torch.models.transformer.captures_train` holds (a
-    CUDA device, no mesh, no MoE block) the step is a CUDA graph, captured
-    on the first call for each shape key (the paths, shapes, dtypes and
-    devices of every leaf of the state and the batch) and replayed by
-    every later call with that key.  The state is donated: the first
-    call's params,
-    opt and ef tensors become the graph's buffers, each replay writes the
-    new state into them in place (:func:`~repro_torch.optim.adamw`'s and
-    :func:`~repro_torch.optim.compress_grads`'s ``in_place``, the same
-    bits as the fresh tensors of :meth:`eager`), and the step returns
-    those buffers, with the loss copied out.  A call whose state is those
-    very tensors copies nothing in; any other state (a restore, a fresh
-    init) is copied in.  So one copy of the state lives on the card, and a
-    caller that keeps a state across a step clones it first, as a donated
-    JAX array is gone after the call.  The capture's warm-up runs the step
-    with its writes left out, so it leaves the state as it found it with
-    no copy of it, and returns its memory to the card before the capture.
-    Elsewhere (the CPU, a mesh, an MoE arch) the step is
-    :meth:`eager`.  ``graphs`` holds one graph per key that has run."""
+    CUDA device, no mesh, no float32 MoE block) the step is a CUDA graph
+    (for an MoE arch the router's aux loss and the grouped expert products'
+    backward inside it), captured on the first call for each shape key (the
+    paths, shapes, dtypes and devices of every leaf of the state and the
+    batch) and replayed by every later call with that key.  The state is
+    donated: the first call's params, opt and ef tensors become the graph's
+    buffers, each replay writes the new state into them in place
+    (:func:`~repro_torch.optim.adamw`'s and
+    :func:`~repro_torch.optim.compress_grads`'s ``in_place``, the same bits
+    as the fresh tensors of :meth:`eager`), and the step returns those
+    buffers, with the loss copied out.  A call whose state is those very
+    tensors copies nothing in; any other state (a restore, a fresh init) is
+    copied in.  So one copy of the state lives on the card, and a caller that
+    keeps a state across a step clones it first, as a donated JAX array is
+    gone after the call.  The capture's warm-up runs the step with its writes
+    left out, so it leaves the state as it found it with no copy of it, and
+    returns its memory to the card before the capture.  Elsewhere (the CPU, a
+    mesh, a float32 MoE arch) the step is :meth:`eager`.  ``graphs`` holds
+    one graph per key that has run."""
 
     def __init__(self, cfg, mesh, step):
         self.cfg, self.mesh, self._step = cfg, mesh, step

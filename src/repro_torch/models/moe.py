@@ -23,9 +23,16 @@ is structurally SpMM -> GEMM -> SpMM.  The reference's three paths:
                  reduce-scatter after the gathered input).
 
 The reference's ``ragged_dot`` is an XLA operation, not a Pallas kernel,
-so the grouped product here is plain PyTorch: one ``torch.matmul`` per
-expert and projection, with the per-expert counts read to the host once a
-layer.  That is the launch-heavy first form (3 E products a layer).
+so the grouped product here is PyTorch's grouped matrix product
+(``torch._grouped_mm``) over the expert-sorted rows: three launches a
+layer, whatever the expert count, with each expert's segment end a device
+tensor (the cumulative sum of the per-expert counts), so the layer reads
+nothing on the host and a CUDA graph can hold it.  On the card the bf16
+product runs CUTLASS's grouped GEMM, which reads the ends on the device;
+its float32 route copies them to the host (the CUDA graphs of
+:mod:`.transformer` leave a float32 MoE uncaptured by rule).
+:func:`_grouped_product_plain`, one ``torch.matmul`` per expert, is the
+plain version the tests hold it against.
 
 Both ``ragged`` and ``ep`` combine by summing each token's ``top_k``
 weighted expert outputs after un-sorting them into (T, k, d) (choice
@@ -97,9 +104,31 @@ def moe_dense(cfg: ArchConfig, p: dict, x: torch.Tensor):
     return out.reshape(b, s, d), aux
 
 
+def _grouped_product(cfg: ArchConfig, xs, ends, w_gate, w_up, w_down) -> torch.Tensor:
+    """The gated expert FFN over the expert-sorted rows ``xs``: three
+    grouped products, each multiplying rows ``ends[j-1] .. ends[j] - 1`` by
+    expert ``j``'s weight, ``ends`` (int32) read on the device."""
+    g = torch._grouped_mm(xs, w_gate, offs=ends)
+    h = _act(cfg, g) * torch._grouped_mm(xs, w_up, offs=ends)
+    return torch._grouped_mm(h, w_down, offs=ends)
+
+
+def _grouped_product_plain(cfg: ArchConfig, xs, ends, w_gate, w_up, w_down) -> torch.Tensor:
+    """:func:`_grouped_product` as one ``torch.matmul`` per expert and
+    projection, the ends read on the host: the plain version the tests
+    hold it against."""
+    ys, start = [], 0
+    for j, end in enumerate(ends.tolist()):
+        seg = xs[start:end]
+        h = _act(cfg, seg @ w_gate[j]) * (seg @ w_up[j])
+        ys.append(h @ w_down[j])
+        start = end
+    return torch.cat(ys)
+
+
 def moe_ragged(cfg: ArchConfig, p: dict, x: torch.Tensor):
-    """Sort (token, choice) pairs by expert, one product per expert over
-    its segment, weight, un-sort and sum each token's ``top_k`` rows."""
+    """Sort (token, choice) pairs by expert, the grouped expert FFN over
+    the sorted rows, weight, un-sort and sum each token's ``top_k`` rows."""
     b, s, d = x.shape
     k, e = cfg.moe.top_k, cfg.moe.n_experts
     x2d = x.reshape(-1, d)
@@ -108,14 +137,9 @@ def moe_ragged(cfg: ArchConfig, p: dict, x: torch.Tensor):
     flat_e = ids.reshape(-1)  # (T*k,)
     order = torch.argsort(flat_e, stable=True)
     xs = x2d[order // k]  # (T*k, d) gathered, expert-sorted
-    counts = torch.bincount(flat_e, minlength=e).tolist()  # one host read a layer
-    ys, start = [], 0
-    for j, n in enumerate(counts):
-        seg = xs[start:start + n]
-        h = _act(cfg, seg @ p["experts_gate"][j]) * (seg @ p["experts_up"][j])
-        ys.append(h @ p["experts_down"][j])
-        start += n
-    y = torch.cat(ys)  # (T*k, d), expert-sorted
+    ends = torch.cumsum(_counts(flat_e, e), 0).to(torch.int32)  # on the device
+    y = _grouped_product(cfg, xs, ends, p["experts_gate"], p["experts_up"],
+                         p["experts_down"])  # (T*k, d), expert-sorted
     w = probs.reshape(-1)[order].to(y.dtype)
     # un-sort: sorted slot i holds flat pair order[i] = (token, choice)
     unsorted = torch.empty_like(y)

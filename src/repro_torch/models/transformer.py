@@ -347,22 +347,24 @@ def decode_step(cfg: ArchConfig, params: dict, cache, tokens: torch.Tensor, inde
 
 def captures_decode(cfg: ArchConfig, device) -> bool:
     """Whether :func:`decoder` captures ``decode_step`` as a CUDA graph: on
-    a CUDA device, without a mesh, for an arch with no MoE block.  The MoE
-    reads its expert counts on the host once a layer (``moe_ragged``), so
-    an arch with one decodes uncaptured, as does the mesh path (DTensor
-    states, the sequence-sharded cache).  A static rule on the arch and the
-    device, not a fallback: a capture that fails raises."""
-    return (torch.device(device).type == "cuda" and "moe" not in cfg.layer_kinds
+    a CUDA device, without a mesh, and for an arch with MoE blocks only in
+    bfloat16.  The MoE's grouped product reads its expert ends on the
+    device in bfloat16, but its float32 route on the card copies them to
+    the host (``moe.moe_ragged``), so a float32 MoE decodes uncaptured, as
+    does the mesh path (DTensor states, the sequence-sharded cache).  A
+    static rule on the arch, its dtype and the device, not a fallback: a
+    capture that fails raises."""
+    host_read = "moe" in cfg.layer_kinds and torch_dtype(cfg) != torch.bfloat16
+    return (torch.device(device).type == "cuda" and not host_read
             and current_mesh() is None)
 
 
 def captures_train(cfg: ArchConfig, device, mesh=None) -> bool:
     """Whether :func:`repro_torch.launch.train.build_trainer`'s step is
     captured as a CUDA graph: :func:`captures_decode`'s rule (a CUDA
-    device, no MoE block, no current mesh) and no ``mesh`` given to the
-    trainer.  The MoE reads its expert counts on the host, and a mesh
-    trains DTensors; both train uncaptured.  A static rule, not a fallback:
-    a capture that fails raises."""
+    device, no float32 MoE block, no current mesh) and no ``mesh`` given
+    to the trainer, which trains DTensors uncaptured.  A static rule, not
+    a fallback: a capture that fails raises."""
     return mesh is None and captures_decode(cfg, device)
 
 

@@ -4,9 +4,10 @@ data-dependent formulation, copied here as its oracle, and within the
 reference's readout tolerance), ``Program.run`` and the LM's
 ``decode_step`` free of host reads (run under ``FakeTensorMode``, which
 refuses any data-dependent output), the decode position as a device
-tensor (equal to the int position and to the reference), the MoE rule,
-and the launch tally a capture keeps.  The captures themselves run on the
-card (``tests/test_torch_cuda.py``)."""
+tensor (equal to the int position and to the reference), the capture
+rule (a float32 MoE arch uncaptured), and the launch tally a capture
+keeps.  The captures themselves run on the card
+(``tests/test_torch_cuda.py``)."""
 import threading
 
 import jax
@@ -265,11 +266,18 @@ def test_decode_step_reads_nothing_on_the_host(arch):
 
 
 def test_moe_archs_decode_uncaptured_by_the_rule():
+    """The rule is static: every arch captures on a card, an MoE arch only
+    in bf16 (the card's float32 grouped product reads its expert ends on
+    the host, so a float32 MoE arch decodes uncaptured); nothing captures
+    on the CPU, where the decoder is ``decode_step`` itself."""
     cuda = torch.device("cuda", 0)
     assert tf.captures_decode(get_config("smollm-135m"), cuda)
     assert tf.captures_decode(get_config("recurrentgemma-2b"), cuda)
     assert tf.captures_decode(get_config("xlstm-1.3b"), cuda)
-    assert not tf.captures_decode(get_config("granite-moe-1b-a400m"), cuda)
+    for arch in ("granite-moe-1b-a400m", "granite-moe-3b-a800m"):
+        assert tf.captures_decode(get_config(arch), cuda), arch
+        assert not tf.captures_decode(get_config(arch).with_(dtype="float32"), cuda), arch
+        assert not tf.captures_decode(get_config(arch), "cpu"), arch
     assert not tf.captures_decode(get_config("smollm-135m"), "cpu")
     cfg, _, pt = lm("smollm-135m")
     cache = tf.init_cache(cfg, 2, 4, device="cpu")

@@ -1314,21 +1314,91 @@ def test_a_second_lm_shape_makes_a_second_graph(dev):
     assert all(torch.equal(a, b) for a, b in zip(leaves(new), leaves(want)))
 
 
-def test_moe_trains_uncaptured(dev):
-    """granite-moe (reduced) reads its expert counts on the host: its step
-    stays uncaptured by the rule, builds nothing and leaves its arguments
-    as they were."""
+def _granite_cut(dev, layers=2):
+    """granite-moe-1b-a400m at its published widths (bf16, 32 experts top
+    8), cut to ``layers`` layers, and its weights."""
+    cfg = get_config("granite-moe-1b-a400m").with_(n_layers=layers)
+    return cfg, init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+
+
+def test_moe_captured_decode_equals_the_uncaptured_decode(dev):
+    """granite-moe (2 layers, full width, bf16) decodes through one
+    captured ``decode_step``: a prompt of 16 positions and 4 greedy tokens,
+    every position's logits ``torch.equal`` to ``decode_step`` run
+    uncaptured on its own cache, the greedy tokens equal."""
+    from repro_torch.models import decode_step, init_cache
+    from repro_torch.models.transformer import captures_decode, decoder
+
+    cfg, params = _granite_cut(dev)
+    assert captures_decode(cfg, dev)
+    prompts = make_inputs(cfg, 2, 16, seed=1, device=dev)
+    runs = []
+    for captured in (True, False):
+        cache = init_cache(cfg, 2, 20, dev)
+        step = (decoder(cfg, params, cache, prompts[:, :1]) if captured else
+                lambda tok, i, c=cache: decode_step(cfg, params, c, tok, i)[0])
+        logits = [step(prompts[:, i:i + 1], i) for i in range(16)]
+        tok = torch.argmax(logits[-1][:, -1], dim=-1)[:, None].to(torch.int32)
+        for i in range(4):
+            logits.append(step(tok, 16 + i))
+            tok = torch.argmax(logits[-1][:, -1], dim=-1)[:, None].to(torch.int32)
+        runs.append(logits)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_moe_captured_train_steps_equal_the_uncaptured_step(dev):
+    """granite-moe (2 layers, full width, bf16) trains through a captured
+    AdamW step (the router's aux loss and the grouped products' backward
+    in the graph): three steps ``torch.equal`` to the uncaptured step in
+    the loss and every leaf of params, m, v and the step counter; one
+    graph."""
+    from repro_torch.data import LMDataPipeline
+    from repro_torch.launch.train import build_trainer
     from repro_torch.models.transformer import captures_train
     from repro_torch.tree import leaves, tree_map
 
-    cfg, step, state, data = _lm_trainer(dev, "granite-moe-1b-a400m", None)
-    assert not captures_train(cfg, dev)
-    kept = tree_map(torch.clone, state)
-    before = repro_torch.trace_count()
-    loss, *new = step(*state, data.peek(0))
-    assert not step.graphs and repro_torch.trace_count() == before
-    assert all(torch.equal(a, b) for a, b in zip(leaves(state), leaves(kept)))
-    assert bool(torch.isfinite(loss))
+    cfg, params = _granite_cut(dev)
+    assert captures_train(cfg, dev)
+    init_opt, step = build_trainer(cfg, lr=1e-3, total_steps=10)
+    data = LMDataPipeline(cfg, 2, 128, seed=1, device=dev)
+    state = (params, init_opt(params), None)
+    fresh, owned = tree_map(torch.clone, state), state
+    for s in range(3):
+        loss, *owned = step(*owned, data.peek(s))
+        want_loss, *fresh = step.eager(*fresh, data.peek(s))
+        assert torch.equal(loss, want_loss), s
+    assert len(step.graphs) == 1
+    assert int(owned[1].step) == 3
+    assert all(torch.equal(a, b) for a, b in zip(leaves(owned), leaves(fresh)))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_moe_ragged_reads_the_host_only_in_float32(dev, dtype):
+    """``moe_ragged`` at granite's widths (2 x 512 tokens), forward and
+    backward, under ``set_sync_debug_mode("error")``: in bf16 the grouped
+    products read their expert ends on the device, so nothing synchronises
+    and the MoE captures; PyTorch's float32 route copies the ends to the
+    host, which is why ``captures_decode`` leaves a float32 MoE
+    uncaptured."""
+    from repro_torch.models.moe import init_moe, moe_ragged
+    from repro_torch.models.transformer import captures_decode
+
+    cfg = get_config("granite-moe-1b-a400m").with_(dtype=dtype)
+    p = {k: t.requires_grad_() for k, t in
+         init_moe(cfg, torch.Generator(device=dev).manual_seed(0), dev).items()}
+    x = randn((2, 512, cfg.d_model), 4, dev, p["experts_gate"].dtype).requires_grad_()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, aux = moe_ragged(cfg, p, x)
+        (out.float().square().mean() + aux).backward()
+        synced = False
+    except RuntimeError as err:
+        assert "synchronizing" in str(err)
+        synced = True
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert synced == (dtype == "float32") == (not captures_decode(cfg, dev))
 
 
 def test_a_cpu_rebind_does_not_replay_the_cards_graph(dev):

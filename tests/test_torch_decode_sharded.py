@@ -27,7 +27,7 @@ import pytest
 import torch
 
 from repro_torch.launch.mesh import spawn
-from test_torch_distributed import JOIN_S, REF_TOL, TOL, _errors, _full, _held_against, _whole
+from test_torch_distributed import PG_S, JOIN_S, REF_TOL, TOL, _errors, _full, _held_against, _whole
 
 B, PROMPT, S_MAX = 2, 3, 16
 STEPS = {"whole_heads": 4, "windowed": 10}
@@ -112,7 +112,7 @@ def inputs():
 
 @pytest.fixture(scope="module")
 def ranks(inputs):
-    return spawn(_rank, 4, *inputs, device_type="cpu", join_timeout_s=JOIN_S)
+    return spawn(_rank, 4, *inputs, device_type="cpu", join_timeout_s=JOIN_S, pg_timeout_s=PG_S)
 
 
 @pytest.fixture(scope="module")

@@ -4,11 +4,11 @@ expert-parallel MoE against the reference's, the elastic restore and the
 trainer).
 
 Each fixture starts one group of processes (``repro_torch.launch.mesh.spawn``:
-``file://`` rendezvous in a temporary directory, a 60 s process-group
-timeout, one intra-op thread a process, a join timeout) that runs every
-check of one mesh shape ((2, 2); (1, 4) under the reference's production
-rules and under its tuned rules, whose residual stream is sharded over the
-sequence); the tests read its results.  Weights come from
+``file://`` rendezvous in a temporary directory, a process-group timeout
+of ``PG_S``, one intra-op thread a process, a join timeout of ``JOIN_S``)
+that runs every check of one mesh shape ((2, 2); (1, 4) under the
+reference's production rules and under its tuned rules, whose residual
+stream is sharded over the sequence); the tests read its results.  Weights come from
 ``repro.models.init_params`` (numpy, then ``params_from_numpy``).  All
 reduced configs, float32; the MoE with capacity for every token, as the
 unsharded port's ragged path never drops.
@@ -38,7 +38,14 @@ B, S = 4, 8
 TOL = 1e-4
 GRAD_TOL = 1e-5
 XLSTM_REL_L2 = 1e-3
-JOIN_S = 120
+#: What a group of four ``gloo`` ranks is allowed on a loaded machine (the
+#: tier-1 run puts five other test workers beside them, each with its own
+#: intra-op threads): ``JOIN_S`` for the whole group to finish, ``PG_S``
+#: for one rank to wait in a collective for the slowest.  A group alone
+#: takes 30-90 s; the 120 s join and the default 60 s collective wait were
+#: overrun under that load.
+JOIN_S = 600
+PG_S = 300
 
 
 def _port_cfg(arch, aux=True):
@@ -218,7 +225,7 @@ def ref_results(ref_models):
 def on_2x2(ref_models):
     trees, inputs, labels = ref_models
     return spawn(_model_checks, 4, 2, trees, inputs, labels, device_type="cpu",
-                 join_timeout_s=JOIN_S)[0]
+                 join_timeout_s=JOIN_S, pg_timeout_s=PG_S)[0]
 
 
 def _on_1x4(trees, inputs, labels):
@@ -232,7 +239,7 @@ def _on_1x4(trees, inputs, labels):
 def on_1x4(ref_models):
     trees, inputs, labels = ref_models
     return spawn(_on_1x4, 4, trees, inputs, labels, device_type="cpu",
-                 join_timeout_s=JOIN_S)[0]
+                 join_timeout_s=JOIN_S, pg_timeout_s=PG_S)[0]
 
 
 # ---------------------------------------------------------------------------

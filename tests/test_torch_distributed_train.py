@@ -29,7 +29,7 @@ import pytest
 import torch
 
 from repro_torch.launch.mesh import spawn
-from test_torch_distributed import GRAD_TOL, JOIN_S, _full, _mesh, _port_cfg
+from test_torch_distributed import PG_S, GRAD_TOL, JOIN_S, _full, _mesh, _port_cfg
 
 # ---------------------------------------------------------------------------
 # Rank bodies (run in the spawned processes)
@@ -205,7 +205,7 @@ def moe_ep_pair(tmp_path_factory):
                                            "experts_down")}}
              for (m, cf, e, aux_w), r in zip(specs, refs)]
     return refs, spawn(_moe_ep_checks, 4, cases, device_type="cpu",
-                       join_timeout_s=JOIN_S)[0]
+                       join_timeout_s=JOIN_S, pg_timeout_s=PG_S)[0]
 
 
 MOE_EP_CASES = ["no_drops", "capacity_drops_tokens", "3_experts_padded_to_4",
@@ -285,9 +285,9 @@ def granite_tree():
 def elastic(granite_tree, tmp_path_factory):
     root = tmp_path_factory.mktemp("elastic")
     saved = spawn(_elastic_save, 4, 2, granite_tree, str(root), device_type="cpu",
-                  join_timeout_s=JOIN_S)[0]
+                  join_timeout_s=JOIN_S, pg_timeout_s=PG_S)[0]
     restored = spawn(_elastic_restore, 2, 1, str(root), device_type="cpu",
-                     join_timeout_s=JOIN_S)[0]
+                     join_timeout_s=JOIN_S, pg_timeout_s=PG_S)[0]
     return saved, restored, root
 
 
@@ -336,7 +336,7 @@ def trained(tmp_path_factory):
 
     root = tmp_path_factory.mktemp("train")
     spawn(_train_runs, 4, str(root), device_type="cpu",
-          join_timeout_s=JOIN_S)
+          join_timeout_s=JOIN_S, pg_timeout_s=PG_S)
     one = ["--arch", "smollm-135m", "--reduced", "--device", "cpu", "--batch", "4",
            "--seq", "16", "--steps", "3"]
     assert train.main(one + ["--checkpoint-dir", f"{root}/one"]) == 0

@@ -27,7 +27,7 @@ import pytest
 import torch
 
 from repro_torch.launch.mesh import spawn
-from test_torch_distributed import JOIN_S, TOL, _errors, _full
+from test_torch_distributed import PG_S, JOIN_S, TOL, _errors, _full
 from test_torch_dryrun import finish, run_sub
 
 REF_TOL = dict(rtol=2e-4, atol=2e-5)
@@ -136,7 +136,7 @@ def _real_rank():
 
 
 def test_fake_trace_equals_a_real_gloo_run(subprocess_cells):
-    real = spawn(_real_rank, 4, device_type="cpu", join_timeout_s=JOIN_S)[0]
+    real = spawn(_real_rank, 4, device_type="cpu", join_timeout_s=JOIN_S, pg_timeout_s=PG_S)[0]
     fake = _done(subprocess_cells, "fake")
     assert fake["calls"] == real["calls"]
     assert len(real["calls"]) > 0 and {c[1] for c in real["calls"]} == {2}
@@ -207,7 +207,8 @@ def fault1_reference():
 
 def test_sharded_attention_with_unaligned_heads(fault1_reference, subprocess_cells):
     tree, inputs, ref_logits = fault1_reference
-    res = spawn(_fault1_rank, 4, tree, inputs, device_type="cpu", join_timeout_s=JOIN_S)[0]
+    res = spawn(_fault1_rank, 4, tree, inputs, device_type="cpu", join_timeout_s=JOIN_S,
+                pg_timeout_s=PG_S)[0]
     for what in ("forward", "prefill", "cache"):
         assert res[what]["max_abs"] <= TOL, (what, res[what])
     np.testing.assert_allclose(res["logits"], ref_logits, **REF_TOL)

@@ -12,7 +12,7 @@ view did not fail.  The spawned processes import this module by name.
 import torch
 
 from repro_torch.launch.mesh import spawn
-from test_torch_distributed import GRAD_TOL, JOIN_S, _errors
+from test_torch_distributed import PG_S, GRAD_TOL, JOIN_S, _errors
 
 B, S = 2, 8
 
@@ -44,6 +44,7 @@ def _rank():
 
 
 def test_rglru_gradients_at_batch_two_on_a_model_axis_match_unsharded():
-    for r, res in enumerate(spawn(_rank, 4, device_type="cpu", join_timeout_s=JOIN_S)):
+    for r, res in enumerate(spawn(_rank, 4, device_type="cpu", join_timeout_s=JOIN_S,
+                                  pg_timeout_s=PG_S)):
         assert res["loss"] <= GRAD_TOL, (r, res)
         assert res["grads"]["max_abs"] <= GRAD_TOL, (r, res)

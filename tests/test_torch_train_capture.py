@@ -5,7 +5,7 @@ output), the aggregation's backward with its segment sum unchecked and
 equal to the earlier formulation (copied here as its oracle), the state
 written in place with the bits of the fresh-tensor step, the shape key's
 builds equal to the reference's retraces, the rule that keeps a mesh and
-an MoE arch uncaptured, and what the runner does with a step that failed
+a float32 MoE arch uncaptured, and what the runner does with a step that failed
 after writing its state.  The captures themselves run on the card
 (``tests/test_torch_cuda.py``)."""
 import jax
@@ -298,7 +298,9 @@ def test_training_captures_by_a_static_rule():
         with use_sharding(object(), None):
             assert not captures_train(get_config(arch), cuda), arch
     for arch in ("granite-moe-1b-a400m", "granite-moe-3b-a800m"):
-        assert not captures_train(get_config(arch), cuda), arch
+        assert captures_train(get_config(arch), cuda), arch
+        assert not captures_train(get_config(arch).with_(dtype="float32"), cuda), arch
+        assert not captures_train(get_config(arch), cuda, mesh=object()), arch
 
 
 def test_a_step_that_failed_after_writing_its_state_is_not_rerun(tmp_path, monkeypatch):
