@@ -8,6 +8,7 @@ any failure.
     python3 chip_smoke.py --only dryrun        # phase 13 alone
     python3 chip_smoke.py --only lanes         # phase 14 alone (the GNN kernels built first)
     python3 chip_smoke.py --only captured      # phase 15 alone (every kernel built first)
+    python3 chip_smoke.py --only pp            # phase 7 alone (the GNN kernels built first)
 
 Phases, one JSON line each (no phase's error is caught):
 
@@ -84,6 +85,13 @@ Phases, one JSON line each (no phase's error is caught):
                 bit-identical to the one-device fallback, kernel tier
                 (``spmm`` + ``gemm``) within 2e-4; the three times, and
                 whether the two streams' kernels overlap in the trace.
+                Then ``Program.run`` under a ``pp`` schedule on that mesh,
+                cora GCN 1433 -> 16 -> 8 and the batch at the engine's
+                dims, on both tiers, one CUDA graph per key (both streams
+                inside it): replays ``torch.equal`` to the uncaptured
+                forward, the eager tier to the fallback, the kernel tier
+                within 2e-4, ``spmm`` and ``gemm`` once a band a replay;
+                replay and uncaptured ms.
 8. train      — training on the card, which reaches no kernel (the
                 reference's training reaches no ``pallas_call``), each step
                 a captured CUDA graph where the reference jits it: cora GCN
@@ -116,7 +124,9 @@ Phases, one JSON line each (no phase's error is caught):
                 GCN under a ``pp`` schedule trained through the two-stream
                 Parallel Pipeline (``mesh=[cuda:0, cuda:0]``, and two cards
                 where there are two): the loss equal to ``mesh=None``'s,
-                the parameters within 2e-4, a repeated step bit-identical.
+                the parameters within 2e-4, a repeated step bit-identical;
+                the two-stream step captured, its 3 steps ``torch.equal``
+                to the uncaptured step, warm ms of both.
 9. gemm       — the dataflow GEMM's own entry point, the public op
                 ``gemm``, called once per dataflow on cora's layer-0
                 combination (on the model path it is the kernel tier's
@@ -149,15 +159,21 @@ Phases, one JSON line each (no phase's error is caught):
                 in f32, and in bf16 on the kernel route's expert choices;
                 read in bf16 with each route's own choices, beside the
                 count of choices that changed), an 8-token
-                sharded prefill against the unsharded one, two sharded
-                training steps at batch 2 x 512, a checkpoint round trip
-                and the resumed step ``torch.equal`` to the straight one;
-                DTensor's host cost as smollm-135m's step on the (1, 1)
-                mesh against the same step unsharded.  With two or more
-                cards, one process a card (4 cards: meshes (1, 4) and
-                (2, 2)): EP over the cards against the (1, 1) logits, each
-                rank's flash on its own heads held as above, f32 data
-                parallelism against one card's whole batch, a resumed step
+                sharded prefill against the unsharded one, its decode
+                through one captured graph over the DTensor cache
+                ``torch.equal`` to uncaptured (logits and cache); the
+                sharded AdamW step at batch 2 x 512 captured: 3 steps
+                ``torch.equal`` to ``TrainStep.eager`` leaf by leaf, an
+                eager step under ``set_sync_debug_mode("error")``, a
+                checkpoint round trip and the resumed captured step
+                ``torch.equal`` to the straight one; DTensor's host cost as
+                smollm-135m's step on the (1, 1) mesh, captured and eager,
+                against the same step unsharded.  With two or more cards,
+                one process a card (4 cards: meshes (1, 4) and (2, 2)): EP
+                over the cards against the (1, 1) logits, each rank's flash
+                on its own heads held as above, f32 data parallelism
+                against one card's whole batch, each rank's captured step
+                ``torch.equal`` to its eager twin, a resumed step
                 ``torch.equal``, a checkpoint written on every card
                 restored on half of them and on one, per-rank step walls
                 and a profiled step's NCCL time.  On one card that part
@@ -171,7 +187,7 @@ Phases, one JSON line each (no phase's error is caught):
                 seconds; (b) granite-moe at the sharded phase's shape
                 (published widths, bf16, 2 x 512) traced on a fake (1, 1)
                 mesh and run on a (1, 1) NCCL mesh on this card, train step
-                and kernel-route prefill: argument bytes and local FLOPs
+                (uncaptured) and kernel-route prefill: argument bytes and local FLOPs
                 (``FlopCounterMode`` on a warm step; flash through its
                 registered formula) held equal, flash launched once an
                 attention layer; the predicted peak against
@@ -1863,7 +1879,88 @@ def phase_pp(dev, counters, held) -> dict:
               "ok": True})
         del want, got_k, got_e
     torch.cuda.empty_cache()
+    big_case = (batch.graph, batch.d_bucket, shapes[1][2])
+    for k, n in pp_programs(dev, counters, cora, big_case, held["dims"]).items():
+        launches[k] += n
     print(f"pp phase wall {time.perf_counter() - t_phase:.3f} s", flush=True)
+    return launches
+
+
+def pp_programs(dev, counters, cora, big_case, dims) -> dict:
+    """``Program.run`` under a ``pp`` schedule (128-row bands) on two
+    streams of one card, ``mesh=[cuda:0, cuda:0]``, captured as one CUDA
+    graph per shape key, on both tiers: cora GCN 1433 -> 16 -> 8 and the
+    engine's reddit-bin (512, 256) x 64 batch at the engine's ``dims``
+    (``big_case``: its graph, ELL width and features).  Each: one capture
+    for the key (two runs); both replays ``torch.equal`` to the uncaptured twin
+    (``exe.eager``) on the same inputs; the eager tier ``torch.equal`` to
+    ``mesh=None``'s fallback, the kernel tier within ``TOL_PATH`` of it;
+    ``spmm`` and ``gemm`` launched once a band of each layer a replay; the
+    replay's ms beside the uncaptured forward's.  Returns the kernels'
+    launches in the two captured runs."""
+    import repro_torch
+    from repro_torch.api import CapturedForward
+    from repro_torch.core.schedule import ModelSchedule
+    from repro_torch.gnn import GNNConfig
+
+    launches = {k: 0 for k in counters}
+    cases = [("cora gcn", cora, None, randn((cora.n_nodes, 1433), 53, dev),
+              [(1433, 16), (16, 8)], 10),
+             ("reddit-bin (512, 256) x 64", *big_case, dims, 2)]
+    mesh = [dev, dev]
+    for label, graph, pad, x, dims_, iters in cases:
+        for use_pallas in (False, True):
+            cfg = GNNConfig(f_in=dims_[0][0], hidden=dims_[0][1], n_classes=dims_[-1][1],
+                            use_pallas=use_pallas)
+            sched = ModelSchedule.from_policies("pp", "AC", cfg.dims, band_size=128)
+            prog = repro_torch.compile(cfg, graph=graph, schedule=sched, device=dev)
+            if pad is not None:  # the batch's ELL width, as the engine pads it
+                prog = prog.bind(graph, pad_degree=pad)
+            params = prog.init(torch.Generator().manual_seed(4))
+            tc0 = repro_torch.trace_count()
+            reset_counts(counters)
+            out = prog.run(params, x, mesh=mesh)
+            again = prog.run(params, x, mesh=mesh)
+            sync(dev)
+            counts = {k: c.launches for k, c in counters.items()}
+            for k in launches:
+                launches[k] += counts[k]
+            captures = repro_torch.trace_count() - tc0
+            (exe,) = prog._exec_cache.values()
+            check(isinstance(exe, CapturedForward) and exe.graph is not None,
+                  f"pp program {label}: mesh={mesh} not captured")
+            direct = exe.eager(params, prog.adj.indices, prog.adj.weights, x, None)
+            fallback = prog.run(params, x)
+            sync(dev)
+            tier = "kernels" if use_pallas else "eager"
+            replay_equal = bool(torch.equal(out, direct) and torch.equal(again, direct))
+            check(captures == 1, f"pp program {label} {tier}: {captures} captures, not 1")
+            check(replay_equal, f"pp program {label} {tier}: a replay differs from the "
+                  "uncaptured forward")
+            n_bands = 2 * -(-prog.adj.v_pad // 128)
+            per_replay = exe.graph.launches
+            if use_pallas:
+                check(per_replay.get("spmm") == n_bands and per_replay.get("gemm") == n_bands,
+                      f"pp program {label}: a replay launches {per_replay}, not {n_bands} "
+                      "spmm and gemm")
+                torch.testing.assert_close(out, fallback, **TOL_PATH)
+            else:
+                check(not per_replay, f"pp program {label} eager: launched {per_replay}")
+                check(bool(torch.equal(out, fallback)), f"pp program {label}: the two-stream "
+                      "eager tier is not bit-identical to the one-device fallback")
+            emit({"phase": "pp", "case": f"Program.run {label}", "tier": tier,
+                  "dims": cfg.dims, "v_pad": prog.adj.v_pad, "band": 128,
+                  "mesh": [str(d) for d in mesh], "captures": captures,
+                  "launches_per_replay": per_replay, "bands_per_replay": n_bands,
+                  "launches_two_runs": counts, "replays_equal_uncaptured": replay_equal,
+                  "max_abs_vs_fallback": float((out - fallback).abs().max()),
+                  "replay_ms": event_ms(lambda: prog.run(params, x, mesh=mesh), iters),
+                  "uncaptured_ms": event_ms(lambda: exe.eager(
+                      params, prog.adj.indices, prog.adj.weights, x, None), iters),
+                  "fallback_replay_ms": event_ms(lambda: prog.run(params, x), iters),
+                  "card": card_line(), "ok": True})
+            del prog, exe, out, again, direct, fallback
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -2427,10 +2524,15 @@ def train_families(dev, counters, batch=2, seq=128) -> None:
 def pp_train(dev, cora, spec, x, labels, mask) -> None:
     """cora GCN (1433 -> 16 -> 8) under a ``pp`` schedule trained through
     the two-stream Parallel Pipeline: ``mesh=[cuda:0, cuda:0]`` (and
-    ``[cuda:0, cuda:1]`` with two cards) against ``mesh=None``, two SGD
+    ``[cuda:0, cuda:1]`` with two cards) against ``mesh=None``, three SGD
     steps each: the same loss, the parameters within 2e-4 (the CPU test's
-    checks), and the first step run again bit-identical."""
+    checks), and the first step run again bit-identical.  On one card the
+    two-stream step is a CUDA graph (each band's backward on its forward's
+    stream, inside it): its three steps ``torch.equal`` to the uncaptured
+    step (``exe.eager``) from the same parameters, and its warm step ms
+    beside the uncaptured step's; two cards stay uncaptured."""
     import repro_torch
+    from repro_torch.api import CapturedForward
     from repro_torch.core.cost_model import GNNLayerWorkload
     from repro_torch.core.schedule import ModelSchedule
     from repro_torch.gnn import GNNConfig
@@ -2473,7 +2575,29 @@ def pp_train(dev, cora, spec, x, labels, mask) -> None:
         record[f"{name}_max_abs_vs_none"] = worst
         record[f"{name}_repeat_bit_identical"] = repeat
         check(repeat, f"PP train {name}: the repeated step is not bit-identical")
-    emit(record | {"ok": True})
+    # the two-stream step's graph against its uncaptured twin
+    (exe,) = [e for k, e in prog._exec_cache.items()
+              if k[0] == "train" and k[3] == tuple(meshes["two_streams"])]
+    check(isinstance(exe, CapturedForward) and exe.graph is not None,
+          "PP train two_streams: the step is not captured")
+    q, differ = params, []
+    for s, (loss, p) in enumerate(runs["two_streams"]):
+        want_loss, q = exe.eager(q, prog.adj.indices, prog.adj.weights, x, labels, mask)
+        if not (torch.equal(loss, want_loss)
+                and all(torch.equal(a[k], b[k]) for a, b in zip(p, q) for k in a)):
+            differ.append(s)
+    two = meshes["two_streams"]
+    record["two_streams_captured"] = True
+    record["two_streams_captured_equals_uncaptured_3_steps"] = not differ
+    record["two_streams_warm_step_ms"] = {
+        "captured": event_ms(lambda: prog.train_step(params, x, labels, mask, lr=0.05,
+                                                     mesh=two), 10),
+        "uncaptured": event_ms(lambda: exe.eager(params, prog.adj.indices, prog.adj.weights,
+                                                 x, labels, mask), 10),
+        "mesh_none_captured": event_ms(lambda: prog.train_step(params, x, labels, mask,
+                                                               lr=0.05), 10)}
+    check(not differ, f"PP train two_streams: captured steps {differ} differ from uncaptured")
+    emit(record | {"card": card_line(), "ok": True})
 
 
 def moe_train(dev, counters, batch=2, seq=512) -> None:
@@ -3160,9 +3284,12 @@ def route_flips(a: list, b: list) -> dict:
 def dtensor_host_cost(dev, mesh, rules, steps=5, batch=8, seq=512) -> dict:
     """DTensor's cost on one algorithm: smollm-135m (dense, so the sharded
     and the unsharded step run the same products) trained ``steps`` steps
-    unsharded and on the (1, 1) mesh, at the ``train`` phase's batch.  The
-    difference of the medians of the warm steps (the first left out), in
-    CUDA-event ms and in the calling thread's CPU seconds."""
+    unsharded (captured), on the (1, 1) mesh captured, and on the mesh
+    uncaptured (``TrainStep.eager``), at the ``train`` phase's batch, each
+    from the same weights.  The differences of the medians of the warm
+    steps (the first left out), in CUDA-event ms and in the calling
+    thread's CPU seconds; whether the mesh's captured losses equal its
+    uncaptured ones."""
     from repro_torch.configs import get_config
     from repro_torch.data import LMDataPipeline
     from repro_torch.launch import train
@@ -3171,25 +3298,36 @@ def dtensor_host_cost(dev, mesh, rules, steps=5, batch=8, seq=512) -> dict:
 
     cfg = get_config("smollm-135m")
     data = LMDataPipeline(cfg, batch, seq, seed=0, device=dev)
-    logs = {}
-    for name in ("unsharded", "sharded"):
+    logs, losses = {}, {}
+    for name in ("unsharded", "sharded", "sharded_eager"):
         params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
-        m, r = (mesh, rules) if name == "sharded" else (None, None)
+        m, r = (None, None) if name == "unsharded" else (mesh, rules)
         if m is not None:
             params = distribute(params, param_shardings(params, m, r))
         init_opt, step_fn = train.build_trainer(cfg, m, r, lr=3e-4, total_steps=steps)
-        run, logs[name] = step_timer(step_fn)
-        opt = init_opt(params)
+        run, logs[name] = step_timer(step_fn.eager if name == "sharded_eager" else step_fn)
+        opt, losses[name] = init_opt(params), []
         for i in range(steps):
-            _, params, opt, _ = run(params, opt, None, data.peek(i))
-        del params, opt
-    torch.cuda.empty_cache()
+            loss, params, opt, _ = run(params, opt, None, data.peek(i))
+            losses[name].append(loss)
+        if name != "sharded_eager":
+            check(len(step_fn.graphs) == 1, f"smollm-135m {name} step: not one graph")
+        del params, opt, step_fn
+        gc.collect()
+        torch.cuda.empty_cache()
     med = {name: {key: statistics.median(s[key] for s in log[1:]) for key in ("ms", "cpu_s")}
            for name, log in logs.items()}
+    same = all(torch.equal(a, b) for a, b in zip(losses["sharded"], losses["sharded_eager"]))
+    check(same, "smollm-135m on the (1, 1) mesh: captured losses differ from uncaptured")
     return {"model": "smollm-135m", "batch": batch, "seq": seq, "steps": logs,
             "median_warm": med,
+            "sharded_captured_losses_equal_eager": same,
             "dtensor_host_ms_per_step": med["sharded"]["ms"] - med["unsharded"]["ms"],
-            "dtensor_host_cpu_s_per_step": med["sharded"]["cpu_s"] - med["unsharded"]["cpu_s"]}
+            "dtensor_host_cpu_s_per_step": med["sharded"]["cpu_s"] - med["unsharded"]["cpu_s"],
+            "dtensor_eager_ms_per_step":
+                med["sharded_eager"]["ms"] - med["unsharded"]["ms"],
+            "dtensor_eager_cpu_s_per_step":
+                med["sharded_eager"]["cpu_s"] - med["unsharded"]["cpu_s"]}
 
 
 def phase_sharded(dev, counters, batch=2, seq=512) -> dict:
@@ -3203,20 +3341,20 @@ def phase_sharded(dev, counters, batch=2, seq=512) -> dict:
     (:func:`held_flash_islands`); the logits against the same mesh's plain
     route, held in f32, and in bf16 with the plain route rerun on the
     kernel route's expert choices; read in bf16 with each route's own
-    choices, beside the count of choices that changed; an 8-token sharded ``prefill`` (its decode replay through the
-    DTensor cache) against the unsharded one; two sharded AdamW steps (bf16
-    parameters, f32 moments) through ``launch.train.build_trainer(cfg,
-    mesh, rules)``, the step-1 state saved and restored by the
-    ``Checkpointer`` and the resumed step ``torch.equal`` to the straight
-    one; DTensor's host cost on smollm-135m (:func:`dtensor_host_cost`).  Then, with two or more cards, one process
-    a card (:func:`sharded_multi_card`); on one card that part says it did
-    not run."""
+    choices, beside the count of choices that changed; an 8-token sharded
+    ``prefill`` (its decode replay through one captured graph over the
+    DTensor cache) against the unsharded one, and its decode captured
+    against uncaptured (:func:`sharded_decode`); the sharded AdamW step,
+    captured, against ``TrainStep.eager``, an eager step under
+    ``set_sync_debug_mode("error")`` and a checkpoint-resumed captured step
+    (:func:`sharded_train`); DTensor's host cost on smollm-135m, captured
+    and eager (:func:`dtensor_host_cost`).  Then, with two or more cards,
+    one process a card (:func:`sharded_multi_card`); on one card that part
+    says it did not run."""
     import torch.distributed as dist
 
-    from repro_torch.checkpoint import Checkpointer
     from repro_torch.configs import get_config
     from repro_torch.data import LMDataPipeline
-    from repro_torch.launch import train
     from repro_torch.launch.mesh import init_process_group, make_mesh_for
     from repro_torch.models import (
         count_params,
@@ -3228,7 +3366,7 @@ def phase_sharded(dev, counters, batch=2, seq=512) -> dict:
         use_sharding,
     )
     from repro_torch.models.sharding import distribute
-    from repro_torch.tree import leaf_paths, leaves, tree_map
+    from repro_torch.tree import leaves, tree_map
 
     t_phase = time.perf_counter()
     cfg = get_config(SHARDED_ARCH)
@@ -3285,6 +3423,7 @@ def phase_sharded(dev, counters, batch=2, seq=512) -> dict:
         short_vs = rel_l2(short.full_tensor(), short_ref)
         cache_vs = max(rel_l2(a.full_tensor(), b) for a, b in zip(leaves(cache), cache_ref))
         del short, cache, short_ref, cache_ref
+        decode8 = sharded_decode(dev, cfg, sp, tokens[:, :8])
         # the same comparison in float32, where the two routes' rounding
         # cannot flip an expert choice: the held check of flash on the mesh
         cfg32 = cfg.with_(dtype="float32")
@@ -3299,27 +3438,9 @@ def phase_sharded(dev, counters, batch=2, seq=512) -> dict:
     torch.save(logits.cpu(), root / "logits_1x1.pt")
     del logits
 
-    init_opt, step_fn = train.build_trainer(cfg, mesh, rules, lr=3e-4, total_steps=2)
-    run, log = step_timer(step_fn)
-    loss0, p1, o1, _ = run(sp, init_opt(sp), None, data.peek(0))
+    trained = sharded_train(dev, cfg, mesh, rules, sp, data, root)
     del sp
-    ck = Checkpointer(root / "ckpt")
-    t0 = time.perf_counter()
-    ck.save(1, {"params": p1, "opt": o1})
-    save_s = time.perf_counter() - t0
-    loss1, p2, o2, _ = run(p1, o1, None, data.peek(1))
-    del p1, o1
-    t0 = time.perf_counter()
-    state = ck.restore({"params": p2, "opt": o2}, step=1)
-    restore_s = time.perf_counter() - t0
-    same_placements = all(a.placements == b.placements for a, b in
-                          zip(leaves(state["params"]), leaves(p2)))
-    _, p3, o3, _ = run(state["params"], state["opt"], None, data.peek(1))
-    del state
-    differ = ["/".join(map(str, path))
-              for (path, a), b in zip(leaf_paths({"p": p3, "o": o3}), leaves({"p": p2, "o": o2}))
-              if not local_equal(a, b)]
-    del p2, o2, p3, o3
+    gc.collect()
     torch.cuda.empty_cache()
     dtensor = dtensor_host_cost(dev, mesh, rules)
     islands, islands32 = islands_summary(islands), islands_summary(islands32)
@@ -3335,12 +3456,8 @@ def phase_sharded(dev, counters, batch=2, seq=512) -> dict:
           "unsharded_prefill_vs_plain_rel_l2": unsharded_vs_plain,
           "prefill_f32_vs_plain_rel_l2": f32_vs_plain,
           "prefill8_vs_unsharded_rel_l2": short_vs, "cache8_vs_unsharded_rel_l2": cache_vs,
-          "prefill8_s": short_prefill_s,
-          "losses": [float(loss0), float(loss1)], "steps": log,
-          "dtensor_cost": dtensor,
-          "checkpoint_save_s": save_s, "checkpoint_restore_s": restore_s,
-          "restored_on_the_same_placements": same_placements,
-          "resumed_step_equals_straight": not differ, "leaves_differing": differ[:8],
+          "prefill8_s": short_prefill_s, "decode8": decode8,
+          "train": trained, "dtensor_cost": dtensor,
           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
           "phase_s": time.perf_counter() - t_phase, "card": card_line()})
     check(flash == cfg.n_layers, f"sharded prefill launched flash {flash} times, "
@@ -3353,8 +3470,6 @@ def phase_sharded(dev, counters, batch=2, seq=512) -> dict:
     check(f32_vs_plain <= SHARDED_F32_REL_L2,
           f"sharded f32 prefill vs plain route: {f32_vs_plain}")
     check(cache_vs <= LM_BF16_REL_L2, f"sharded 8-token prefill's cache vs unsharded: {cache_vs}")
-    check(same_placements, "restored parameters lost their placements")
-    check(not differ, f"sharded resumed step differs in {len(differ)} leaves: {differ[:4]}")
     if torch.cuda.device_count() >= 2:
         sharded_multi_card(root)
         restore_on_one_card(root / "ckpt_multi", mesh)
@@ -3367,6 +3482,145 @@ def phase_sharded(dev, counters, batch=2, seq=512) -> dict:
     shutil.rmtree(root, ignore_errors=True)
     dist.destroy_process_group()
     return counts
+
+
+def on_host(tree):
+    """Each tensor of ``tree`` (a DTensor's own shard) copied to the host."""
+    from repro_torch.capture import local
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t: local(t).to("cpu", copy=True), tree)
+
+
+def shards_differing(on_card, host) -> list:
+    """The paths of the leaves of ``on_card`` whose shards differ from
+    ``host``'s (:func:`on_host`), leaf by leaf: no second state on the card."""
+    from repro_torch.capture import local
+    from repro_torch.tree import leaf_paths, leaves
+
+    return ["/".join(map(str, path)) for (path, a), b in zip(leaf_paths(on_card), leaves(host))
+            if not torch.equal(local(a), b.to(local(a).device))]
+
+
+def sharded_decode(dev, cfg, sp, prompt) -> dict:
+    """The prompt through ``decode_step`` on the mesh (inside
+    ``use_sharding``) over the heads-placed DTensor cache of
+    ``init_cache``: captured (one graph, ``transformer.decoder``, the
+    position a 0-d device tensor) and uncaptured, each on a cache of its
+    own.  Every position's logits and every cache leaf ``torch.equal``;
+    both walls (the captured one includes its warm-up and capture)."""
+    from repro_torch.capture import local
+    from repro_torch.models import decode_step, init_cache
+    from repro_torch.models.transformer import captures_decode, decoder
+    from repro_torch.tree import leaves
+
+    b, n = prompt.shape
+    caches, logits, walls = {}, {}, {}
+    for kind in ("captured", "uncaptured"):
+        cache = init_cache(cfg, b, n, dev)
+        sync(dev)
+        t0 = time.perf_counter()
+        if kind == "captured":
+            check(captures_decode(cfg, dev, cache), "sharded decode: not captured by the rule")
+            step = decoder(cfg, sp, cache, prompt[:, :1])
+        else:
+            def step(tok, i, cache=cache):
+                return decode_step(cfg, sp, cache, tok, i)[0]
+        logits[kind] = [local(step(prompt[:, i:i + 1], i)).clone() for i in range(n)]
+        sync(dev)
+        walls[kind] = time.perf_counter() - t0
+        caches[kind] = cache
+    same_logits = all(torch.equal(a, b) for a, b in zip(logits["captured"],
+                                                        logits["uncaptured"]))
+    same_cache = all(torch.equal(local(a), local(b)) for a, b in
+                     zip(leaves(caches["captured"]), leaves(caches["uncaptured"])))
+    check(same_logits and same_cache, f"sharded decode: captured differs from uncaptured "
+          f"(logits equal {same_logits}, cache equal {same_cache})")
+    return {"positions": n, "batch": b, "captured_equals_uncaptured": True,
+            "cache_placements": str(leaves(caches["captured"])[0].placements),
+            "captured_s": walls["captured"], "uncaptured_s": walls["uncaptured"]}
+
+
+def sharded_train(dev, cfg, mesh, rules, sp, data, root) -> dict:
+    """``launch.train``'s AdamW step on the (1, 1) NCCL mesh (bf16
+    parameters, f32 moments, batch 2 x 512), a CUDA graph by the rule:
+    3 uncaptured steps (``TrainStep.eager``) from ``sp`` and a fresh
+    state, one more under ``set_sync_debug_mode("error")`` (forward and
+    backward read nothing on the host), then 3 captured steps from the same
+    start, each leaf's shard and every loss ``torch.equal``; the state
+    after step 3 saved by the ``Checkpointer``, step 4 run straight, then
+    from the restored state (its placements kept), ``torch.equal``.  One
+    state lives on the card at a time."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import captures_train
+    from repro_torch.capture import local
+    from repro_torch.tree import leaves
+
+    init_opt, step_fn = train.build_trainer(cfg, mesh, rules, lr=3e-4, total_steps=10)
+    check(captures_train(cfg, dev, mesh), "sharded train: not captured by the rule")
+    box = {"state": (sp, init_opt(sp))}
+    start = on_host(box["state"])
+    losses, logs = {}, {}
+    for kind in ("uncaptured", "captured"):
+        run, logs[kind] = step_timer(step_fn.eager if kind == "uncaptured" else step_fn)
+        losses[kind] = []
+        for s in range(3):
+            loss, *st, _ = run(*box["state"], None, data.peek(s))
+            box["state"] = tuple(st)
+            losses[kind].append(loss)
+        if kind == "uncaptured":
+            batch = data.peek(3)  # the batch's copy from the host is outside the step
+            sync(dev)
+            torch.cuda.set_sync_debug_mode("error")
+            try:  # raises where a forward or backward op synchronises
+                step_fn.eager(*box["state"], None, batch)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            del batch
+            after3 = on_host(box["state"])
+            for buf, h in zip(leaves(box["state"]), leaves(start)):  # the start again
+                local(buf).copy_(h)
+            del start
+    differ = shards_differing(box["state"], after3)
+    del after3
+    if not torch.equal(torch.stack(losses["captured"]), torch.stack(losses["uncaptured"])):
+        differ.append("losses")
+    state = box.pop("state")
+    ck = Checkpointer(root / "ckpt")
+    t0 = time.perf_counter()
+    ck.save(3, {"params": state[0], "opt": state[1]})
+    save_s = time.perf_counter() - t0
+    loss, *_ = step_fn(*state, None, data.peek(3))
+    straight = on_host((loss, *state))
+    t0 = time.perf_counter()
+    restored = ck.restore({"params": state[0], "opt": state[1]}, step=3)
+    restore_s = time.perf_counter() - t0
+    same_placements = all(a.placements == b.placements for a, b in
+                          zip(leaves(restored["params"]), leaves(state[0])))
+    loss, *_ = step_fn(restored["params"], restored["opt"], None, data.peek(3))
+    del restored
+    resume_differ = shards_differing((loss, *state), straight)
+    del straight, state
+    out = {"steps": 3, "graphs": len(step_fn.graphs),
+           "losses": {k: [float(v) for v in ls] for k, ls in losses.items()},
+           "step_ms": {k: [r["ms"] for r in log] for k, log in logs.items()},
+           "step_cpu_s": {k: [r["cpu_s"] for r in log] for k, log in logs.items()},
+           "warm_step_ms_median": {k: statistics.median(r["ms"] for r in log[1:])
+                                   for k, log in logs.items()},
+           "eager_step_under_sync_debug_error": "passed",
+           "captured_equals_uncaptured_3_steps": not differ, "leaves_differing": differ[:8],
+           "checkpoint_save_s": save_s, "checkpoint_restore_s": restore_s,
+           "restored_on_the_same_placements": same_placements,
+           "resumed_step_equals_straight": not resume_differ,
+           "resume_leaves_differing": resume_differ[:8],
+           "graph_pool_bytes": graph_pool_bytes(step_fn.graphs.values())}
+    check(len(step_fn.graphs) == 1, f"sharded train: {len(step_fn.graphs)} graphs, not 1")
+    check(not differ, f"sharded train: captured steps differ from uncaptured in {differ[:4]}")
+    check(same_placements, "restored parameters lost their placements")
+    check(not resume_differ, f"sharded resumed step differs in {len(resume_differ)} leaves: "
+          f"{resume_differ[:4]}")
+    return out
 
 
 def restore_on_one_card(ckdir, mesh) -> None:
@@ -3408,9 +3662,10 @@ def sharded_rank(world: int, root: str) -> dict:
     MoE with room for every token and no aux loss, so the whole batch's
     loss is the same function) against this card's unsharded loss and
     gradients on the whole batch (rank 0); (c) on (world / 2, 2), bf16: two
-    steps, the step-1 state saved by every rank (rank 0 writes), the
-    resumed step ``torch.equal`` to the straight one; per-rank step walls
-    and one profiled step's NCCL kernel time."""
+    steps uncaptured, then two captured from the same start, ``torch.equal``
+    shard by shard, the step-1 state saved by every rank (rank 0 writes),
+    the resumed step ``torch.equal`` to the straight one; per-rank step
+    walls and one profiled step's NCCL kernel time."""
     from dataclasses import replace
 
     import torch.distributed as dist
@@ -3493,21 +3748,32 @@ def sharded_rank(world: int, root: str) -> dict:
         del p32, grads
         torch.cuda.empty_cache()
 
-    # (c) two bf16 steps on (world / 2, 2), a checkpoint, the resumed step
+    # (c) two bf16 steps on (world / 2, 2): uncaptured, then captured from
+    # the same start (the captured state is the graph's, donated), a
+    # checkpoint, the resumed step
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     sp = distribute(params, param_shardings(params, mesh2, rules))
     del params
     init_opt, step_fn = train.build_trainer(cfg, mesh2, rules, lr=3e-4, total_steps=2)
-    run, log = step_timer(step_fn)
-    _, p1, o1, _ = run(sp, init_opt(sp), None, data.peek(0))
+    start = (sp, init_opt(sp))
     del sp
+    loss, p, o, _ = step_fn.eager(*start, None, data.peek(0))
+    loss, p, o, _ = step_fn.eager(p, o, None, data.peek(1))
+    eager2 = on_host((loss, p, o))
+    del p, o
+    run, log = step_timer(step_fn)
+    _, p1, o1, _ = run(*start, None, data.peek(0))
+    del start
     ck = Checkpointer(Path(root) / "ckpt_multi")
     ck.save(1, {"params": p1, "opt": o1})
-    _, p2, o2, _ = run(p1, o1, None, data.peek(1))
+    loss, p2, o2, _ = run(p1, o1, None, data.peek(1))
+    out["captured_leaves_differing"] = shards_differing((loss, p2, o2), eager2)[:8]
+    out["graphs"] = len(step_fn.graphs)
+    straight = on_host((p2, o2))
     state = ck.restore({"params": p2, "opt": o2}, step=1)
     _, p3, o3, _ = run(state["params"], state["opt"], None, data.peek(1))
-    out["resume_equal"] = all(local_equal(a, b) for a, b in
-                              zip(leaves({"p": p3, "o": o3}), leaves({"p": p2, "o": o2})))
+    out["resume_equal"] = not shards_differing((p3, o3), straight)
+    del eager2, straight
     wall = []
 
     def profiled():
@@ -3589,6 +3855,9 @@ def sharded_multi_card(root: Path) -> None:
               "dp_grad_rel_l2_max_top8": r0["dp_grad_rel_l2_max_top8"],
               "dp_grad_rel_l2_worst_top8": r0["dp_grad_rel_l2_worst_top8"],
               "resume_equal_by_rank": [r["resume_equal"] for r in ranks],
+              "captured_equals_eager_by_rank": [not r["captured_leaves_differing"]
+                                                for r in ranks],
+              "graphs_by_rank": [r["graphs"] for r in ranks],
               "step_ms_by_rank": [[s["ms"] for s in r["steps"]] for r in ranks],
               "step_cpu_s_by_rank": [[s["cpu_s"] for s in r["steps"]] for r in ranks],
               "profiled_step_by_rank": [r["profiled_step"] for r in ranks],
@@ -3609,6 +3878,10 @@ def sharded_multi_card(root: Path) -> None:
     check(r0["dp_grad_rel_l2_max"] <= DP_GRAD_REL_L2,
           f"data-parallel gradients vs the whole batch: {r0['dp_grad_rel_l2_max']}")
     check(all(r["resume_equal"] for r in ranks), "multi-card resumed step differs")
+    for r in ranks:
+        check(r["graphs"] == 1 and not r["captured_leaves_differing"],
+              f"rank {r['rank']}: {r['graphs']} graphs; captured steps differ from "
+              f"uncaptured in {r['captured_leaves_differing'][:4]}")
     check(half["exact"], f"checkpoint from {world} ranks restored on {world // 2} differs")
 
 
@@ -3764,10 +4037,10 @@ def dryrun_rank(model_parallel: int) -> dict:
     batch = LMDataPipeline(cfg, 2, 512, seed=0, device=dev).peek(0)
     with use_sharding(mesh, rules):
         placed = {k: shard(v, "batch", None) for k, v in batch.items()}
-    step(sp, opt, None, batch)
+    step.eager(sp, opt, None, batch)  # uncaptured: CommDebugMode sees its ops
     torch.cuda.synchronize()
     with CommDebugMode() as comm:
-        step(sp, opt, None, batch)
+        step.eager(sp, opt, None, batch)
     torch.cuda.synchronize()
     return {"rank": dist.get_rank(), "comm": comm_counts(comm),
             "argument_bytes": local_bytes((sp, opt, placed))}
@@ -3975,6 +4248,7 @@ def gates_rank() -> dict:
             sp = distribute(params, param_shardings(params, mesh, rules))
             init_opt, step = train.build_trainer(cfg, mesh, rules, lr=3e-4, total_steps=10)
             opt = init_opt(sp)
+            step = step.eager  # uncaptured: the gates' DTensor cost, seen by CommDebugMode
             step(sp, opt, None, batch)
             times = []
             for _ in range(GATES_STEPS):
@@ -4157,7 +4431,9 @@ def phase_dryrun(dev, counters, procs) -> dict:
     the three terms, the dominant one and the trace seconds.  (b)
     granite-moe-1b-a400m at the sharded phase's shape (published widths,
     bf16, 2 x 512) traced on a fake (1, 1) mesh, against the same step run
-    on a (1, 1) NCCL mesh on this card: argument bytes (parameters,
+    uncaptured (``TrainStep.eager``: a graph's replay dispatches no op for
+    ``FlopCounterMode`` to count) on a (1, 1) NCCL mesh on this card:
+    argument bytes (parameters,
     optimizer state, batch) equal exactly; local FLOPs equal
     ``FlopCounterMode`` on a warm step exactly (the prefill's flash calls
     through the kernel's registered formula, flash launched once an
@@ -4212,8 +4488,8 @@ def phase_dryrun(dev, counters, procs) -> dict:
     real = {"train": {"argument_bytes": local_bytes((sp, opt, data.peek(0)))},
             "prefill": {"argument_bytes": local_bytes((sp, data.peek(0)["inputs"]))}}
 
-    def train_step(s):
-        return step(sp, opt, None, data.peek(s))[0]
+    def train_step(s):  # the uncaptured step: its ops are what the trace holds
+        return step.eager(sp, opt, None, data.peek(s))[0]
 
     with use_sharding(mesh, rules):
         def prefill(s):
@@ -4243,7 +4519,7 @@ def phase_dryrun(dev, counters, procs) -> dict:
         # the train step's peak, split: autograd's saved tensors and the
         # allocator's peaks, beside the trace's predicted peak
         real["train"]["memory_split"] = saved_tensor_bytes(
-            lambda: step(sp, opt, None, data.peek(2)), leaves((sp, opt, data.peek(2))))
+            lambda: step.eager(sp, opt, None, data.peek(2)), leaves((sp, opt, data.peek(2))))
     counts = real["prefill"]["launches"]
     del sp, opt
     torch.cuda.empty_cache()
@@ -4363,9 +4639,10 @@ def phase_dryrun(dev, counters, procs) -> dict:
 def main() -> int:
     only = sys.argv[1:]
     if only not in ([], ["--only", "train"], ["--only", "lm_families"], ["--only", "sharded"],
-                    ["--only", "dryrun"], ["--only", "lanes"], ["--only", "captured"]):
+                    ["--only", "dryrun"], ["--only", "lanes"], ["--only", "captured"],
+                    ["--only", "pp"]):
         print("usage: python3 chip_smoke.py "
-              "[--only train|lm_families|sharded|dryrun|lanes|captured]", file=sys.stderr)
+              "[--only train|lm_families|sharded|dryrun|lanes|captured|pp]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4398,6 +4675,16 @@ def main() -> int:
         build_libraries([spmm_ops.LIBRARY, fused_ops.LIBRARY, flash_ops.LIBRARY,
                          gemm_ops.LIBRARY])
         phase_captured(dev, counters)
+        print(card_line(), flush=True)
+        return 0
+    if only == ["--only", "pp"]:  # the GNN kernels built together first
+        from repro_torch.graphs import TABLE4
+        from repro_torch.kernels.common import build_libraries
+
+        build_libraries([spmm_ops.LIBRARY, gemm_ops.LIBRARY])
+        f_in = TABLE4["reddit-bin"].n_features
+        phase_pp(dev, counters, {"requests": reddit_requests(64, f_in, seed=2),
+                                 "dims": [(f_in, 16), (16, 8)]})
         print(card_line(), flush=True)
         return 0
     if only == ["--only", "lanes"]:  # the GNN kernels built together first

@@ -69,10 +69,10 @@ PROGRAM_FORMAT = "repro.program/v1"
 
 #: total number of executables built by Programs, process-wide.  A "trace"
 #: is the first build of an ``_exec_cache`` entry for one shape key: on a
-#: CUDA device its CUDA-graph capture, on the CPU (and over a mesh) its
-#: uncaptured closure; a second run on a same-shape input (or a same-shape
-#: rebind) must leave this counter unchanged — the reference's zero-retrace
-#: contract, which the serving engine asserts.
+#: CUDA device its CUDA-graph capture, on the CPU (and over a mesh of two
+#: cards) its uncaptured closure; a second run on a same-shape input (or a
+#: same-shape rebind) must leave this counter unchanged — the reference's
+#: zero-retrace contract, which the serving engine asserts.
 _TRACE_COUNT = 0
 
 
@@ -137,6 +137,23 @@ def _stats_from_dict(d: dict) -> ModelStats:
 # ---------------------------------------------------------------------------
 # Program
 # ---------------------------------------------------------------------------
+
+
+def captures_on(device: torch.device, mesh) -> bool:
+    """Whether a Program's executable for ``device`` and ``mesh`` is a CUDA
+    graph: on a CUDA device with no mesh, or with a mesh whose every entry
+    names that card (the two-stream Parallel Pipeline,
+    ``mesh=[cuda:0, cuda:0]``).  A mesh of two cards stays uncaptured: one
+    ``torch.cuda.CUDAGraph`` captures on one device.  A static rule, not a
+    fallback: a capture that fails raises."""
+    if device.type != "cuda":
+        return False
+
+    def card(d):
+        d = torch.device(d)
+        return resolve_device(d) if d.type == "cuda" and d.index is None else d
+
+    return mesh is None or all(card(d) == device for d in mesh)
 
 
 class CapturedForward:
@@ -310,14 +327,15 @@ class Program:
 
     def _build(self, n_nodes: int, mesh, readout, num_segments, device):
         """The executable of one shape key (counted by :func:`trace_count`):
-        on a CUDA device without a mesh, :meth:`_forward` captured as a
-        CUDA graph on its first call (:class:`CapturedForward`), the
-        counterpart of the reference's ``jax.jit``; on the CPU, or over a
-        mesh (the two-stream and two-card Parallel Pipeline), the
-        uncaptured forward itself."""
+        where :func:`captures_on` holds (a CUDA device, with no mesh or the
+        two-stream Parallel Pipeline's mesh of that card), :meth:`_forward`
+        captured as a CUDA graph on its first call
+        (:class:`CapturedForward`), the counterpart of the reference's
+        ``jax.jit``, which takes the mesh into its closure; on the CPU, or
+        over a mesh of two cards, the uncaptured forward itself."""
         _note_trace()
         fwd = self._forward(n_nodes, mesh, readout, num_segments)
-        if device.type == "cuda" and mesh is None:
+        if captures_on(device, mesh):
             return CapturedForward(fwd)
         return fwd
 
@@ -346,13 +364,14 @@ class Program:
         that device.  Executables are cached per device and shape key: the
         second call on a same-shape input (including a same-shape
         :meth:`bind`) builds nothing (see :func:`trace_count`).  On a CUDA
-        device without a mesh an executable is a CUDA graph, captured on
-        its first run and replayed by every later one (the inputs and
-        parameters are copied into its static buffers on each run, and the
-        result copied out, so it is the caller's); on the CPU, and over a
-        mesh, it runs uncaptured.  An executable whose first run raises is
-        not kept (the reference keeps no executable for a failed trace):
-        the next run builds it again.
+        device, without a mesh or with one that names only that card, an
+        executable is a CUDA graph, captured on its first run and replayed
+        by every later one (the inputs and parameters are copied into its
+        static buffers on each run, and the result copied out, so it is
+        the caller's); on the CPU, and over a mesh of two cards, it runs
+        uncaptured (:func:`captures_on`).  An executable whose first run
+        raises is not kept (the reference keeps no executable for a failed
+        trace): the next run builds it again.
 
         ``donate`` gives the feature tensor ``x`` to the run, as the
         reference donates the feature buffer: once the forward is
@@ -464,12 +483,12 @@ class Program:
 
     def _train_executable(self, n_nodes: int, mesh, lr: float, device):
         """One SGD step for one shape key, counted by :func:`trace_count`:
-        on a CUDA device without a mesh captured as a CUDA graph on its
+        where :func:`captures_on` holds, captured as a CUDA graph on its
         first call (:class:`CapturedForward`; ``.eager`` is the uncaptured
         step), the counterpart of the reference's jitted step; on the CPU,
-        or over a mesh, the uncaptured step itself.  :meth:`train_step`
-        keeps it in the forward executables' shared cache once it has
-        run."""
+        or over a mesh of two cards, the uncaptured step itself.
+        :meth:`train_step` keeps it in the forward executables' shared
+        cache once it has run."""
         _note_trace()
         # every layer trains on the eager path: the layers that reach a
         # kernel were refused before, and the others (pp's two-group
@@ -496,7 +515,7 @@ class Program:
                 ]
             return loss.detach(), new
 
-        if device.type == "cuda" and mesh is None:
+        if captures_on(device, mesh):
             return CapturedForward(exe)
         return exe
 
@@ -509,8 +528,8 @@ class Program:
         ``x``, ``labels``, ``mask`` and every parameter (where the
         reference's jitted step retraces): later epochs — and same-shape
         rebinds — build nothing (:func:`trace_count` stays put); a step
-        whose first run raises is not kept, as in :meth:`run`.  On a CUDA
-        device without a mesh the step is a CUDA graph, captured on its
+        whose first run raises is not kept, as in :meth:`run`.  Where
+        :func:`captures_on` holds the step is a CUDA graph, captured on its
         first run (loss, backward and update) and replayed by every later
         one; the inputs are copied in and the results copied out, so the
         step donates nothing and returns fresh tensors, as the reference's
@@ -527,7 +546,8 @@ class Program:
         in the reference.  A ``pp`` layer on a mesh of two CUDA devices (or
         two streams of one card, ``mesh=[cuda:0, cuda:0]``) trains through
         the two-stream pipeline: autograd runs each band's backward on the
-        stream its forward ran on, and the step equals ``mesh=None``'s.
+        stream its forward ran on (inside the graph, on one card), and the
+        step equals ``mesh=None``'s.
         """
         reached = sorted({
             f"{s.policy}/{s.order}" for s in self.specs

@@ -130,10 +130,25 @@ def _pipeline_cuda(adj, x, w, producer, consumer, band_size, use_kernels):
 
     Each band is a fresh tensor made on the producer's stream; slot
     ``i % 2`` is free again once the consumer's event for band ``i - 2``
-    has fired, so at most two bands are in flight.  ``record_stream`` keeps
-    a band's memory from the allocator until the consumer's read of it is
-    done.  The output is allocated on the caller's stream, which waits on
-    the consumer's last event before anything reads it.
+    has fired, so at most two bands are in flight.  The output is
+    allocated on the caller's stream, which waits on both groups' streams
+    before anything reads it.
+
+    A band's memory (with the eager tier, a view of its aggregation's whole
+    pairwise tree) must not return to the allocator before the consumer has
+    read it.  Without autograd the slot holds the band until the producer
+    refills it, which is after its stream waited on the consumer's event
+    for that band: freed then, on the producer's stream, its memory is
+    reused in stream order, and at most two bands' trees are alive.  Where
+    autograd keeps bands for the backward, ``record_stream`` ties each to
+    the consumer's stream instead.
+
+    Under CUDA-graph capture (``Program.run`` and ``train_step`` on
+    ``mesh=[cuda:0, cuda:0]``) the caller's stream is the capturing one:
+    the two streams fork from it and both join back into it here, so the
+    capture ends with none left unjoined; a capture frees a
+    ``record_stream`` band only when it ends, so a forward holds its bands
+    in the slots.
     """
     aggregate, combine = _phases(use_kernels)
     n_bands = cdiv(adj.v_pad, band_size)
@@ -146,26 +161,36 @@ def _pipeline_cuda(adj, x, w, producer, consumer, band_size, use_kernels):
     c_stream = torch.cuda.Stream(consumer)
     p_stream.wait_stream(torch.cuda.current_stream(producer))
     c_stream.wait_stream(torch.cuda.current_stream(consumer))
+    saved = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (adj.weights, x, w))  # autograd keeps the bands
     consumed: list = [None, None]  # the consumer's event for each slot
+    held: list = [None, None]  # each slot's band until the slot is refilled
     for i in range(n_bands):
         slot, s = i % 2, i * band_size
         with torch.cuda.stream(p_stream):
             if consumed[slot] is not None:
                 p_stream.wait_event(consumed[slot])  # band i - 2 is combined
+                held[slot] = None  # its memory is free again, in this stream's order
             band = aggregate(idx[s:s + band_size], wts[s:s + band_size], xp)
             produced = torch.cuda.Event()
             produced.record(p_stream)
         with torch.cuda.stream(c_stream):
             c_stream.wait_event(produced)
-            if producer == consumer:
-                band.record_stream(c_stream)
-            else:
+            if producer != consumer:
                 # a peer copy: torch issues it on the source device's
                 # current stream and makes c_stream wait on it
                 with torch.cuda.stream(p_stream):
                     band = band.to(consumer, non_blocking=True)
+            elif saved:
+                band.record_stream(c_stream)
+            else:
+                held[slot] = band
             out[s:s + band_size] = combine(band, wc)
             consumed[slot] = torch.cuda.Event()
             consumed[slot].record(c_stream)
     torch.cuda.current_stream(consumer).wait_event(consumed[(n_bands - 1) % 2])
+    # the last two bands (freed on return) go back in the producer's stream
+    # order after the consumer's reads; the caller's stream joins both
+    p_stream.wait_stream(c_stream)
+    torch.cuda.current_stream(producer).wait_stream(p_stream)
     return out.to(x.device)

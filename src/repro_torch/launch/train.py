@@ -16,9 +16,10 @@ atomic checkpoints + auto-resume, retrying step runner with straggler
 monitor, optional int8 error-feedback gradient compression (on the
 gradient after the data-parallel reduction).  The loss and its gradients
 are plain PyTorch ops (autograd), as the reference differentiates plain
-jnp ops: no hand-written kernel has a backward.  On one card the step is
-a CUDA graph that owns the training state, as the reference jits its step
-and donates the state to it (:class:`TrainStep`).  A step that fails in
+jnp ops: no hand-written kernel has a backward.  On the card, alone or
+on an NCCL mesh, the step is a CUDA graph that owns the training state, as
+the reference jits its step and donates the state to it
+(:class:`TrainStep`).  A step that fails in
 its replay raises ``CudaKernelError``, which the runner re-raises without
 a retry: the state may be half written, and a restart resumes from the
 latest checkpoint.
@@ -42,7 +43,7 @@ import time
 import torch
 import torch.distributed as dist
 
-from ..capture import CapturedGraph
+from ..capture import CapturedGraph, placement
 from ..checkpoint.checkpointer import Checkpointer
 from ..configs import ARCH_IDS, get_config
 from ..data.pipeline import LMDataPipeline
@@ -112,11 +113,16 @@ class TrainStep:
     ``jax.jit(step_fn, donate_argnums=(0, 1, 2))``.
 
     Where :func:`~repro_torch.models.transformer.captures_train` holds (a
-    CUDA device, no mesh, no float32 MoE block) the step is a CUDA graph
-    (for an MoE arch the router's aux loss and the grouped expert products'
-    backward inside it), captured on the first call for each shape key (the
+    CUDA device, no mesh or an NCCL one, no float32 MoE block) the step is
+    a CUDA graph (for an MoE arch the router's aux loss and the grouped
+    expert products' backward inside it; on a mesh the batch's ``shard``,
+    the loss's ``full_tensor`` and the gradients' ``redistribute``, with
+    their collectives), captured on the first call for each shape key (the
     paths, shapes, dtypes and devices of every leaf of the state and the
-    batch) and replayed by every later call with that key.  The state is
+    batch, and each DTensor leaf's mesh and placements) and replayed by
+    every later call with that key.  On a mesh the graph records the
+    function of this rank's local shards
+    (:class:`~repro_torch.capture.LocalShards`).  The state is
     donated: the first call's params, opt and ef tensors become the graph's
     buffers, each replay writes the new state into them in place
     (:func:`~repro_torch.optim.adamw`'s and
@@ -127,10 +133,10 @@ class TrainStep:
     copied in.  So one copy of the state lives on the card, and a caller that
     keeps a state across a step clones it first, as a donated JAX array is
     gone after the call.  The capture's warm-up runs the step with its writes
-    left out, so it leaves the state as it found it with no copy of it, and
-    returns its memory to the card before the capture.  Elsewhere (the CPU, a
-    mesh, a float32 MoE arch) the step is :meth:`eager`.  ``graphs`` holds
-    one graph per key that has run."""
+    left out, so it leaves the state as it found it with no copy of it (its
+    cached memory goes back to the card before the capture).  Elsewhere (the CPU, a
+    ``gloo`` mesh, a float32 MoE arch) the step is :meth:`eager`.
+    ``graphs`` holds one graph per key that has run."""
 
     def __init__(self, cfg, mesh, step):
         self.cfg, self.mesh, self._step = cfg, mesh, step
@@ -140,32 +146,31 @@ class TrainStep:
         """The uncaptured step: fresh tensors, the arguments untouched."""
         return self._step(params, opt, ef, batch)
 
+    def flat_step(self, args, in_place=True):
+        """The step as a function of the leaves of ``args`` (``((params,
+        opt, ef), batch)``) returning the loss: what the graph captures,
+        with the state written in place (``in_place``)."""
+        def fn(*flat):
+            (p, o, e), b = unflatten(args, flat)
+            return self._step(p, o, e, b, in_place)[0]
+        return fn
+
     def __call__(self, params, opt, ef, batch):
         state = (params, opt, ef)
         if not captures_train(self.cfg, leaves(params)[0].device, self.mesh):
             return self.eager(params, opt, ef, batch)
         args = (state, batch)
-        key = tuple((path, tuple(t.shape), t.dtype, t.device) for path, t in leaf_paths(args))
+        key = tuple((path, tuple(t.shape), t.dtype, t.device, placement(t))
+                    for path, t in leaf_paths(args))
         n = len(leaves(state))
         graph = self.graphs.get(key)
         if graph is None:
 
-            def run(in_place):
-                def fn(*flat):
-                    (p, o, e), b = unflatten(args, flat)
-                    return self._step(p, o, e, b, in_place)[0]
-                return fn
-
-            def warmup(*flat):
-                run(False)(*flat)
-                # the capture's private pool cannot reuse what the warm-up
-                # left cached: hand it back to the card first
-                torch.cuda.empty_cache()
-
-            graph = CapturedGraph(run(True), leaves(args), donated=n, warmup=warmup)
+            graph = CapturedGraph(self.flat_step(args), leaves(args), donated=n,
+                                  warmup=self.flat_step(args, in_place=False))
         loss = graph(*leaves(args))
         self.graphs[key] = graph  # kept once it has run
-        return (loss, *unflatten(state, graph.static[:n]))
+        return (loss, *unflatten(state, graph.donated))
 
 
 def main(argv=None) -> int:

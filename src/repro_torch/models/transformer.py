@@ -345,27 +345,55 @@ def decode_step(cfg: ArchConfig, params: dict, cache, tokens: torch.Tensor, inde
     return logits_head(cfg, params["embeddings"], h), cache
 
 
-def captures_decode(cfg: ArchConfig, device) -> bool:
+def captures_decode(cfg: ArchConfig, device, cache=None) -> bool:
     """Whether :func:`decoder` captures ``decode_step`` as a CUDA graph: on
-    a CUDA device, without a mesh, and for an arch with MoE blocks only in
-    bfloat16.  The MoE's grouped product reads its expert ends on the
-    device in bfloat16, but its float32 route on the card copies them to
-    the host (``moe.moe_ragged``), so a float32 MoE decodes uncaptured, as
-    does the mesh path (DTensor states, the sequence-sharded cache).  A
-    static rule on the arch, its dtype and the device, not a fallback: a
-    capture that fails raises."""
+    a CUDA device, with no current mesh or an NCCL one (device type
+    ``cuda``), for an arch with MoE blocks only in bfloat16, and for a
+    ``cache`` not placed over its sequence.  The MoE's grouped product
+    reads its expert ends on the device in bfloat16, but its float32 route
+    on the card copies them to the host (``moe.moe_ragged``), so a float32
+    MoE decodes uncaptured; a ``gloo`` mesh's collectives cannot be
+    captured; and decode over the dry-run's sequence-sharded cache
+    (``launch.specs.cache_shardings``) reads the position on the host
+    (``attention._decode_over_slots``).  A static rule on the arch, its
+    dtype, the device, the mesh and the cache's placements, not a
+    fallback: a capture that fails raises."""
     host_read = "moe" in cfg.layer_kinds and torch_dtype(cfg) != torch.bfloat16
     return (torch.device(device).type == "cuda" and not host_read
-            and current_mesh() is None)
+            and captures_mesh(current_mesh()) and not sequence_placed(cfg, cache))
+
+
+def captures_mesh(mesh) -> bool:
+    """No mesh, or an NCCL one: a mesh whose device type is ``cuda``."""
+    return mesh is None or getattr(mesh, "device_type", None) == "cuda"
+
+
+def sequence_placed(cfg: ArchConfig, cache) -> bool:
+    """Whether any KV state of ``cache`` is sharded over its sequence (dim
+    2 of a stacked state, dim 1 of a remainder one), as the dry-run places
+    it; serving's :func:`init_cache` places it over the batch and heads."""
+    if cache is None:
+        return False
+    from torch.distributed.tensor import Shard
+
+    _, pat, rem = _layer_plan(cfg)
+    kv = [(st.k, 2) for kind, st in zip(pat, cache["scanned"])
+          if kind in ("attn", "local", "moe") and st is not None]
+    kv += [(st.k, 1) for kind, st in zip(rem, cache["remainder"])
+           if kind in ("attn", "local", "moe")]
+    return any(isinstance(pl, Shard) and pl.dim == dim
+               for k, dim in kv for pl in getattr(k, "placements", ()))
 
 
 def captures_train(cfg: ArchConfig, device, mesh=None) -> bool:
     """Whether :func:`repro_torch.launch.train.build_trainer`'s step is
     captured as a CUDA graph: :func:`captures_decode`'s rule (a CUDA
-    device, no float32 MoE block, no current mesh) and no ``mesh`` given
-    to the trainer, which trains DTensors uncaptured.  A static rule, not
-    a fallback: a capture that fails raises."""
-    return mesh is None and captures_decode(cfg, device)
+    device, no float32 MoE block, no current mesh or an NCCL one) and the
+    trainer's ``mesh`` none or an NCCL one, whose step (the batch's
+    ``shard``, the loss's ``full_tensor``, the gradients' ``redistribute``)
+    the graph records with its collectives.  A static rule, not a
+    fallback: a capture that fails raises."""
+    return captures_mesh(mesh) and captures_decode(cfg, device)
 
 
 def decoder(cfg: ArchConfig, params: dict, cache, tokens: torch.Tensor):
@@ -380,8 +408,11 @@ def decoder(cfg: ArchConfig, params: dict, cache, tokens: torch.Tensor):
     dtype, token shape), made once per :func:`prefill` or ``generate`` as
     the reference makes its jitted step once per call.  The graph reads
     the parameters and writes ``cache`` in place; its warm-up run's writes
-    to the cache are undone.  Elsewhere ``decode_step`` runs uncaptured."""
-    if not captures_decode(cfg, tokens.device):
+    to the cache are undone.  On an NCCL mesh the parameters and the cache
+    are DTensors (the cache placed by heads), read and written through
+    their local tensors, and the logits come back as a DTensor.  Elsewhere
+    ``decode_step`` runs uncaptured."""
+    if not captures_decode(cfg, tokens.device, cache):
         return lambda tok, index: decode_step(cfg, params, cache, tok, index)[0]
     index = torch.zeros((), dtype=torch.int64, device=tokens.device)
     return CapturedGraph(lambda tok, i: decode_step(cfg, params, cache, tok, i)[0],

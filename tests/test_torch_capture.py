@@ -187,18 +187,26 @@ def test_program_run_reads_nothing_on_the_host(use_pallas, policy, order, readou
 
 
 def test_build_captures_on_a_card_and_not_on_the_cpu_or_a_mesh():
+    """A card captures, alone or as the two-stream pipeline's mesh of that
+    card (``[cuda:0, cuda:0]``); a mesh of two cards, the CPU and a CPU
+    mesh do not."""
     g, _, _ = small_batch()
     prog = repro_torch.compile(GNNConfig("gcn", 12, 8, 4, use_pallas=True), graph=g,
                                device="cpu")
+    cuda = torch.device("cuda", 0)
     before = repro_torch.trace_count()
-    on_card = prog._build(60, None, None, None, torch.device("cuda", 0))
+    on_card = prog._build(60, None, None, None, cuda)
     assert isinstance(on_card, CapturedForward) and on_card.graph is None
     assert callable(on_card.eager)
-    assert not isinstance(prog._build(60, ("cuda:0", "cuda:0"), None, None,
-                                      torch.device("cuda", 0)), CapturedForward)
+    two_streams = prog._build(60, ("cuda:0", "cuda:0"), None, None, cuda)
+    assert isinstance(two_streams, CapturedForward) and two_streams.graph is None
+    assert not isinstance(prog._build(60, ("cuda:0", "cuda:1"), None, None, cuda),
+                          CapturedForward)
     assert not isinstance(prog._build(60, None, None, None, torch.device("cpu")),
                           CapturedForward)
-    assert repro_torch.trace_count() == before + 3  # one a build, as before
+    assert not isinstance(prog._build(60, ("cpu", "cpu"), None, None, torch.device("cpu")),
+                          CapturedForward)
+    assert repro_torch.trace_count() == before + 5  # one a build, as before
 
 
 # ---------------------------------------------------------------------------
@@ -265,12 +273,36 @@ def test_decode_step_reads_nothing_on_the_host(arch):
         assert logits.shape == (2, 1, cfg.vocab)
 
 
+def sequence_placed_cache(cfg):
+    """A stand-in for the dry-run's cache: each KV state placed over its
+    sequence (dim 2 of a stacked state), as ``launch.specs.cache_shardings``
+    places it; the rule reads only the placements."""
+    from types import SimpleNamespace
+
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.models.attention import KVCache
+
+    _, pat, rem = tf._layer_plan(cfg)
+    kv = SimpleNamespace(placements=(Shard(1), Shard(2)))
+    assert not rem
+    return {"scanned": [KVCache(kv, kv) for _ in pat], "remainder": []}
+
+
 def test_moe_archs_decode_uncaptured_by_the_rule():
-    """The rule is static: every arch captures on a card, an MoE arch only
-    in bf16 (the card's float32 grouped product reads its expert ends on
-    the host, so a float32 MoE arch decodes uncaptured); nothing captures
-    on the CPU, where the decoder is ``decode_step`` itself."""
+    """The rule is static: every arch captures on a card, alone or on an
+    NCCL mesh (device type ``cuda``), an MoE arch only in bf16 (the card's
+    float32 grouped product reads its expert ends on the host, so a float32
+    MoE arch decodes uncaptured); nothing captures on the CPU, where the
+    decoder is ``decode_step`` itself, on a CPU (``gloo``) mesh, or over a
+    cache placed over its sequence (whose decode reads the position on the
+    host)."""
+    from types import SimpleNamespace
+
+    from repro_torch.models.sharding import use_sharding
+
     cuda = torch.device("cuda", 0)
+    nccl, gloo = SimpleNamespace(device_type="cuda"), SimpleNamespace(device_type="cpu")
     assert tf.captures_decode(get_config("smollm-135m"), cuda)
     assert tf.captures_decode(get_config("recurrentgemma-2b"), cuda)
     assert tf.captures_decode(get_config("xlstm-1.3b"), cuda)
@@ -278,7 +310,17 @@ def test_moe_archs_decode_uncaptured_by_the_rule():
         assert tf.captures_decode(get_config(arch), cuda), arch
         assert not tf.captures_decode(get_config(arch).with_(dtype="float32"), cuda), arch
         assert not tf.captures_decode(get_config(arch), "cpu"), arch
+        with use_sharding(nccl, None):
+            assert tf.captures_decode(get_config(arch), cuda), arch
+            assert not tf.captures_decode(get_config(arch).with_(dtype="float32"), cuda), arch
     assert not tf.captures_decode(get_config("smollm-135m"), "cpu")
+    small = get_config("smollm-135m").reduced()
+    with use_sharding(nccl, None):
+        assert tf.captures_decode(small, cuda)
+        assert tf.captures_decode(small, cuda, tf.init_cache(small, 2, 4, device="cpu"))
+        assert not tf.captures_decode(small, cuda, sequence_placed_cache(small))
+    with use_sharding(gloo, None):
+        assert not tf.captures_decode(small, cuda)
     cfg, _, pt = lm("smollm-135m")
     cache = tf.init_cache(cfg, 2, 4, device="cpu")
     tok = torch.zeros((2, 1), dtype=torch.int32)

@@ -1419,3 +1419,167 @@ def test_a_cpu_rebind_does_not_replay_the_cards_graph(dev):
     for a, b in zip(out["card"][2], new):
         for k in a:
             torch.testing.assert_close(a[k].cpu(), b[k], rtol=2e-4, atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# The runs over a mesh, captured: two-stream PP on one card, and the LM on
+# the (1, 1) NCCL mesh
+# ---------------------------------------------------------------------------
+
+
+def _pp_program(dev, use_pallas, v=300, f_in=24, band=32):
+    """A GCN f_in -> 16 -> 4 under a ``pp`` schedule (``band``-row bands),
+    its parameters and features."""
+    from repro_torch.core.schedule import ModelSchedule
+
+    dims = [(f_in, 16), (16, 4)]
+    prog = repro_torch.compile(
+        GNNConfig(f_in=f_in, n_classes=4, use_pallas=use_pallas), graph=_ring(v),
+        device=dev, schedule=ModelSchedule.from_policies("pp", "AC", dims, band_size=band))
+    return prog, prog.init(torch.Generator().manual_seed(0)), randn((v, f_in), 8, dev)
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_pp_run_on_two_streams_is_captured_and_equals_uncaptured(dev, use_pallas):
+    """``Program.run`` with ``mesh=[cuda:0, cuda:0]`` builds one CUDA graph
+    (both streams forked from and joined into the capture): two replays
+    ``torch.equal`` to the uncaptured forward; the eager tier equal to
+    ``mesh=None``'s fallback, the kernel tier within 2e-4 of it; a replay
+    launches ``spmm`` and ``gemm`` once a band of each layer."""
+    from repro_torch.api import CapturedForward
+
+    prog, params, x = _pp_program(dev, use_pallas)
+    mesh = [dev, dev]
+    before = repro_torch.trace_count()
+    out = prog.run(params, x, mesh=mesh)
+    (exe,) = prog._exec_cache.values()
+    assert isinstance(exe, CapturedForward) and exe.graph is not None
+    spmm0, gemm0 = spmm.launches, gemm.launches
+    again = prog.run(params, x, mesh=mesh)
+    assert repro_torch.trace_count() == before + 1
+    bands = 2 * -(-prog.adj.v_pad // 32) if use_pallas else 0
+    assert (spmm.launches - spmm0, gemm.launches - gemm0) == (bands, bands)
+    direct = exe.eager(params, prog.adj.indices, prog.adj.weights, x, None)
+    torch.cuda.synchronize()
+    assert torch.equal(out, direct) and torch.equal(again, direct)
+    fallback = prog.run(params, x)
+    if use_pallas:
+        torch.testing.assert_close(out, fallback, rtol=2e-4, atol=2e-4)
+    else:
+        assert torch.equal(out, fallback)
+
+
+def test_pp_train_step_on_two_streams_is_captured_and_equals_uncaptured(dev):
+    """Three SGD steps through the two-stream pipeline on one card, captured
+    (each band's backward on its forward's stream, inside the graph):
+    ``torch.equal`` to the uncaptured step in the loss and every
+    parameter; one capture for the three."""
+    from repro_torch.api import CapturedForward
+
+    prog, params, task = _train_program(dev, "gcn", "pp", "AC")
+    mesh = [dev, dev]
+    before = repro_torch.trace_count()
+    p = q = params
+    for s in range(3):
+        loss, p = prog.train_step(p, *task, mesh=mesh)
+        (exe,) = _train_executables(prog)
+        want_loss, q = exe.eager(q, prog.adj.indices, prog.adj.weights, *task)
+        assert torch.equal(loss, want_loss), s
+        assert all(torch.equal(a[k], b[k]) for a, b in zip(p, q) for k in a), s
+    assert isinstance(exe, CapturedForward) and exe.graph is not None
+    assert repro_torch.trace_count() == before + 1
+
+
+def _mesh_trainer(dev, mesh, arch, **reduce):
+    from repro_torch.data import LMDataPipeline
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.models import param_shardings, production_rules
+    from repro_torch.models.sharding import distribute
+
+    cfg = (get_config(arch).reduced(**reduce) if reduce.pop("reduced", True)
+           else get_config(arch).with_(**reduce))
+    rules = production_rules()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    params = distribute(params, param_shardings(params, mesh, rules))
+    init_opt, step = build_trainer(cfg, mesh, rules, lr=1e-3, total_steps=10)
+    return cfg, step, (params, init_opt(params), None), LMDataPipeline(cfg, 2, 128, seed=1,
+                                                                      device=dev)
+
+
+def _local_equal(a, b) -> bool:
+    return torch.equal(getattr(a, "_local_tensor", a), getattr(b, "_local_tensor", b))
+
+
+@pytest.mark.parametrize("arch,reduce", [
+    ("smollm-135m", dict(dtype="bfloat16")),
+    ("granite-moe-1b-a400m", dict(reduced=False, n_layers=2)),
+], ids=["smollm_reduced_bf16", "granite_moe_2_layers"])
+def test_mesh_trainer_is_captured_and_equals_the_eager_step(dev, mesh_1x1, arch, reduce):
+    """``launch.train``'s AdamW step on the (1, 1) NCCL mesh, captured (the
+    batch's ``shard``, the loss's ``full_tensor`` and the gradients'
+    ``redistribute`` in the graph): three steps, the loss and every leaf's
+    shard ``torch.equal`` to ``TrainStep.eager``; the state comes back as
+    DTensors on their placements, the very ones donated; one graph."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models.transformer import captures_train
+    from repro_torch.tree import leaves, tree_map
+
+    cfg, step, state, data = _mesh_trainer(dev, mesh_1x1, arch, **reduce)
+    assert captures_train(cfg, dev, mesh_1x1)
+    fresh, owned = tree_map(torch.clone, state), state
+    for s in range(3):
+        loss, *out = step(*owned, data.peek(s))
+        assert all(a is b for a, b in zip(leaves(out), leaves(owned))), s
+        owned = out
+        want_loss, *fresh = step.eager(*fresh, data.peek(s))
+        assert torch.equal(loss, want_loss), s
+    assert len(step.graphs) == 1
+    assert all(isinstance(t, DTensor) for t in leaves(owned[0]))
+    assert all(a.placements == b.placements for a, b in zip(leaves(owned[0]), leaves(fresh[0])))
+    assert all(_local_equal(a, b) for a, b in zip(leaves(owned), leaves(fresh)))
+
+
+def test_mesh_decode_is_captured_and_equals_the_uncaptured_decode(dev, mesh_1x1):
+    """granite-moe (2 layers, full width, bf16) decodes on the (1, 1) NCCL
+    mesh through one captured ``decode_step`` over the heads-placed DTensor
+    cache: 12 positions, each position's logits and then the cache
+    ``torch.equal`` to ``decode_step`` run uncaptured on a cache of its own."""
+    from repro_torch.models import decode_step, init_cache, param_shardings, production_rules
+    from repro_torch.models import use_sharding
+    from repro_torch.models.sharding import distribute
+    from repro_torch.models.transformer import captures_decode, decoder
+    from repro_torch.tree import leaves
+
+    cfg, params = _granite_cut(dev)
+    rules = production_rules()
+    sp = distribute(params, param_shardings(params, mesh_1x1, rules))
+    prompts = make_inputs(cfg, 2, 12, seed=1, device=dev)
+    runs, caches = [], []
+    with torch.no_grad(), use_sharding(mesh_1x1, rules):
+        for captured in (True, False):
+            cache = init_cache(cfg, 2, 12, dev)
+            assert captures_decode(cfg, dev, cache)
+            step = (decoder(cfg, sp, cache, prompts[:, :1]) if captured else
+                    lambda tok, i, c=cache: decode_step(cfg, sp, c, tok, i)[0])
+            runs.append([step(prompts[:, i:i + 1], i).to_local() for i in range(12)])
+            caches.append(cache)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert all(_local_equal(a, b) for a, b in zip(*(leaves(c) for c in caches)))
+
+
+def test_eager_mesh_step_never_synchronizes(dev, mesh_1x1):
+    """One eager AdamW step on the (1, 1) NCCL mesh (granite-moe, 2 layers,
+    bf16), forward and backward, under ``set_sync_debug_mode("error")``:
+    nothing the captured step records reads the device on the host."""
+    _, step, state, data = _mesh_trainer(dev, mesh_1x1, "granite-moe-1b-a400m",
+                                         reduced=False, n_layers=2)
+    step.eager(*state, data.peek(0))  # NCCL's communicator, the tables
+    batch = data.peek(1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss, *_ = step.eager(*state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(loss))

@@ -4,8 +4,8 @@ host reads (run under ``FakeTensorMode``, which refuses a data-dependent
 output), the aggregation's backward with its segment sum unchecked and
 equal to the earlier formulation (copied here as its oracle), the state
 written in place with the bits of the fresh-tensor step, the shape key's
-builds equal to the reference's retraces, the rule that keeps a mesh and
-a float32 MoE arch uncaptured, and what the runner does with a step that failed
+builds equal to the reference's retraces, the rule that keeps a CPU
+(``gloo``) mesh and a float32 MoE arch uncaptured, and what the runner does with a step that failed
 after writing its state.  The captures themselves run on the card
 (``tests/test_torch_cuda.py``)."""
 import jax
@@ -290,17 +290,31 @@ def test_lm_trainer_is_uncaptured_on_the_cpu():
 
 
 def test_training_captures_by_a_static_rule():
+    """A card captures, alone or on an NCCL mesh (device type ``cuda``);
+    the CPU, a CPU (``gloo``) mesh, a mesh of no device type and a float32
+    MoE arch do not."""
+    from types import SimpleNamespace
+
     cuda = torch.device("cuda", 0)
+    nccl, gloo = SimpleNamespace(device_type="cuda"), SimpleNamespace(device_type="cpu")
     for arch in LM_ARCHS + ["tinyllama-1.1b", "olmo-1b"]:
         assert captures_train(get_config(arch), cuda), arch
         assert not captures_train(get_config(arch), "cpu"), arch
+        assert captures_train(get_config(arch), cuda, mesh=nccl), arch
+        assert not captures_train(get_config(arch), cuda, mesh=gloo), arch
         assert not captures_train(get_config(arch), cuda, mesh=object()), arch
-        with use_sharding(object(), None):
+        assert not captures_train(get_config(arch), "cpu", mesh=nccl), arch
+        with use_sharding(nccl, None):
+            assert captures_train(get_config(arch), cuda), arch
+        with use_sharding(gloo, None):
             assert not captures_train(get_config(arch), cuda), arch
     for arch in ("granite-moe-1b-a400m", "granite-moe-3b-a800m"):
         assert captures_train(get_config(arch), cuda), arch
         assert not captures_train(get_config(arch).with_(dtype="float32"), cuda), arch
-        assert not captures_train(get_config(arch), cuda, mesh=object()), arch
+        assert captures_train(get_config(arch), cuda, mesh=nccl), arch
+        assert not captures_train(get_config(arch).with_(dtype="float32"), cuda,
+                                  mesh=nccl), arch
+        assert not captures_train(get_config(arch), cuda, mesh=gloo), arch
 
 
 def test_a_step_that_failed_after_writing_its_state_is_not_rerun(tmp_path, monkeypatch):
