@@ -39,6 +39,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from . import trace
 from .capture import CapturedGraph
 from .core.cost_model import GNNLayerWorkload
 from .core.hw import AcceleratorConfig, DEFAULT_ACCEL, HWGrid, LatencyModel
@@ -259,13 +260,11 @@ class Program:
         same-shape graph builds nothing new.
         """
         dev = resolve_device(device if device is not None else self.device)
-        bound = replace(
-            self,
-            adj=EllAdjacency.from_schedule(
+        with trace.span("repro_torch.program.bind"), trace.timed("setup.bind_s"):
+            adj = EllAdjacency.from_schedule(
                 graph, self.schedule, pad_to=pad_degree, device=dev
-            ),
-            device=dev,
-        )
+            )
+        bound = replace(self, adj=adj, device=dev)
         object.__setattr__(bound, "_exec_cache", self._exec_cache)
         return bound
 
@@ -339,6 +338,7 @@ class Program:
             return CapturedForward(fwd)
         return fwd
 
+    @trace.spanned("repro_torch.program.run")
     def run(
         self,
         params,
@@ -423,11 +423,14 @@ class Program:
                 for layer in params for k, v in sorted(layer.items())
             ),
         )
+        if adj.nonzero is not None:
+            trace.count("ell.nonzero", adj.nonzero)
         exe = self._exec_cache.get(key)
         fresh = exe is None
-        if fresh:
-            exe = self._build(adj.n_nodes, mesh, readout, num_segments, dev)
-        out = exe(params, adj.indices, adj.weights, x, segment_ids)
+        with trace.span("repro_torch.program.build") if fresh else trace.NO_SPAN:
+            if fresh:
+                exe = self._build(adj.n_nodes, mesh, readout, num_segments, dev)
+            out = exe(params, adj.indices, adj.weights, x, segment_ids)
         if fresh:  # kept only once it has run
             self._exec_cache[key] = exe
         if donate:
@@ -519,6 +522,7 @@ class Program:
             return CapturedForward(exe)
         return exe
 
+    @trace.spanned("repro_torch.program.train_step")
     def train_step(self, params, x, labels, mask, *, lr: float = 0.05, mesh=None):
         """One SGD step (loss, grad, parameter update) under the compiled
         schedule; returns ``(loss, new_params)``, detached tensors.
@@ -583,11 +587,14 @@ class Program:
                 for layer in params for k, v in sorted(layer.items())
             ),
         )
+        if adj.nonzero is not None:
+            trace.count("ell.nonzero", adj.nonzero)
         exe = self._exec_cache.get(key)
         fresh = exe is None
-        if fresh:
-            exe = self._train_executable(adj.n_nodes, mesh, float(lr), dev)
-        out = exe(params, adj.indices, adj.weights, x, labels, mask)
+        with trace.span("repro_torch.program.build") if fresh else trace.NO_SPAN:
+            if fresh:
+                exe = self._train_executable(adj.n_nodes, mesh, float(lr), dev)
+            out = exe(params, adj.indices, adj.weights, x, labels, mask)
         if fresh:  # kept only once it has run
             self._exec_cache[key] = exe
         return out

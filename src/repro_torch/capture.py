@@ -17,10 +17,14 @@ What a capture must hold to:
   (``.item()``, ``nonzero``, a data-dependent shape) cannot be captured;
   the paths captured here have none (their CPU tests run them under
   ``FakeTensorMode``).
-- *Launch counts.*  Kernel wrappers count a launch with
-  :func:`~repro_torch.kernels.common.count_launch`; under capture it goes
-  to the capture's tally, and every replay adds the tally, so a count is
-  still the number of launches that ran.
+- *Counts.*  Kernel wrappers count a launch with
+  :func:`~repro_torch.trace.count_launch`, and the eager tier its work
+  with :func:`~repro_torch.trace.count`; under capture both go to the
+  capture's tally, and every replay adds the tally, so a count is still
+  the work that ran.  A replay counts the bytes it copies into the static
+  buffers (``replay.bytes_in``) and itself (``replay.calls``); a capture
+  its host seconds (``setup.capture_s``).  Its phases are profiler spans
+  (``repro_torch.capture.*``, ``repro_torch.replay.*``).
 - *Faults raise.*  A kernel that fails to launch during the capture raises
   :class:`~repro_torch.kernels.common.CudaKernelError` there, and a replay
   that fails to launch raises it too.  Nothing falls back to an
@@ -75,7 +79,8 @@ import threading
 
 import torch
 
-from .kernels.common import CudaKernelError, add_launches, launch_tally
+from . import trace
+from .kernels.common import CudaKernelError
 
 #: one capture at a time in a process (see the module docstring)
 _CAPTURE_LOCK = threading.Lock()
@@ -180,6 +185,7 @@ class CapturedGraph:
     (DTensors over the buffers, where they were DTensors).
     """
 
+    @trace.timed("setup.capture_s")
     def __init__(self, fn, inputs, *, mutated=(), donated=0, warmup=None):
         locals_ = [local(t) for t in inputs]
         self.device = locals_[0].device
@@ -188,6 +194,7 @@ class CapturedGraph:
         shards = LocalShards(fn, inputs)
         self.donated = list(inputs[:donated])
         self.static = locals_[:donated] + [t.clone() for t in locals_[donated:]]
+        self._nbytes = [t.numel() * t.element_size() for t in self.static]
         self._lock = threading.Lock()
         self._done = torch.cuda.Event()
         self._replayed = False
@@ -196,14 +203,16 @@ class CapturedGraph:
         side.wait_stream(caller)
         mutated = [local(t) for t in mutated]
         with torch.cuda.device(self.device), torch.cuda.stream(side):
-            saved = [t.clone() for t in mutated]
-            # warm-up: kernels built and loaded, pools and NCCL communicators made
-            LocalShards(warmup or fn, inputs)(*self.static)
-            for t, s in zip(mutated, saved):
-                t.copy_(s)
-            del saved
+            with trace.span("repro_torch.capture.warmup"):
+                saved = [t.clone() for t in mutated]
+                # warm-up: kernels built and loaded, pools and NCCL communicators made
+                LocalShards(warmup or fn, inputs)(*self.static)
+                for t, s in zip(mutated, saved):
+                    t.copy_(s)
+                del saved
             self.graph = torch.cuda.CUDAGraph()
-            with _CAPTURE_LOCK, _collector_paused(), launch_tally() as tally:
+            with trace.span("repro_torch.capture.record"), _CAPTURE_LOCK, \
+                    _collector_paused(), trace.launch_tally() as tally:
                 # the capture's private pool cannot reuse the blocks the
                 # default pool holds cached: hand them back to the card
                 torch.cuda.empty_cache()
@@ -226,27 +235,33 @@ class CapturedGraph:
     @property
     def launches(self) -> dict:
         """Kernel launches of one replay, by wrapper name."""
-        return {w.__name__: n for w, n in self.tally.items()}
+        return {w.__name__: n for w, n in self.tally.items() if not isinstance(w, str)}
 
     def __call__(self, *inputs):
         stream = torch.cuda.current_stream(self.device)
         with self._lock:
             if self._replayed:
                 stream.wait_event(self._done)
-            for buf, value in zip(self.static, map(local, inputs)):
-                if value is buf:
-                    continue
-                if isinstance(value, torch.Tensor):
-                    buf.copy_(value)
-                else:
-                    buf.fill_(value)
+            copied = 0
+            with trace.span("repro_torch.replay.copy_in"):
+                for buf, nbytes, value in zip(self.static, self._nbytes, map(local, inputs)):
+                    if value is buf:
+                        continue
+                    if isinstance(value, torch.Tensor):
+                        buf.copy_(value)
+                    else:
+                        buf.fill_(value)
+                    copied += nbytes
             try:  # a fault from here on may leave donated buffers half written
-                with torch.cuda.device(self.device):
+                with trace.span("repro_torch.replay.launch"), torch.cuda.device(self.device):
                     self.graph.replay()
-                out = tuple(t.clone() for t in self.out)
+                with trace.span("repro_torch.replay.copy_out"):
+                    out = tuple(t.clone() for t in self.out)
             except RuntimeError as e:
                 raise CudaKernelError(f"CUDA graph replay failed: {e}") from e
-            add_launches(self.tally)
+            trace.add_launches(self.tally)
+            trace.count("replay.bytes_in", copied)
+            trace.count("replay.calls")
             self._done.record(stream)
             self._replayed = True
         return _rewrap(out, self._out_specs, self._single)

@@ -38,6 +38,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .. import trace
 from ..core.registry import lookup_kernel, register_kernel
 from ..core.schedule import ExecSpec
 from ..device import resolve_device
@@ -52,11 +53,14 @@ POLICIES = ("seq", "sp_generic", "sp_opt", "pp")
 
 @dataclass(frozen=True)
 class EllAdjacency:
-    """Device-side padded-ELL adjacency (see CSRGraph.to_ell)."""
+    """Device-side padded-ELL adjacency (see CSRGraph.to_ell).
+    ``nonzero``, the slots whose weight is not zero, is counted on the
+    host when the adjacency is built from a graph (None otherwise)."""
 
     indices: torch.Tensor  # (V_pad, D) int32
     weights: torch.Tensor  # (V_pad, D) f32 — zero on padded slots
     n_nodes: int
+    nonzero: int | None = None
 
     @classmethod
     def from_csr(
@@ -77,6 +81,7 @@ class EllAdjacency:
             torch.as_tensor(np.ascontiguousarray(idx, np.int32), device=dev),
             torch.as_tensor(np.ascontiguousarray(wts, np.float32), device=dev),
             g.n_nodes,
+            int(np.count_nonzero(wts)),
         )
 
     @classmethod
@@ -115,7 +120,9 @@ def aggregate_band(
     It is differentiable: when autograd needs it, the same forward runs
     inside :class:`_AggregateBand`, whose backward scatters ``w * g`` back
     onto the gathered rows of ``x``; the forward's bits are the same
-    either way.
+    either way.  The forward, and each backward product that walks the
+    slots, counts its B x D slots on the ``agg.slots`` counter
+    (:mod:`repro_torch.trace`).
     """
     if torch.is_grad_enabled() and (weights.requires_grad or x.requires_grad):
         return _AggregateBand.apply(indices, weights, x)
@@ -125,6 +132,7 @@ def aggregate_band(
 def _aggregate_band(indices, weights, x) -> torch.Tensor:
     """The pairwise-tree forward of :func:`aggregate_band` (no autograd)."""
     b, d = indices.shape
+    trace.count("agg.slots", b * d)
     dt = torch.promote_types(weights.dtype, x.dtype)
     width = 1 << max(d - 1, 0).bit_length()
     terms = torch.zeros((b, width, x.shape[1]), dtype=dt, device=x.device)
@@ -162,9 +170,11 @@ class _AggregateBand(torch.autograd.Function):
         flat = indices.reshape(-1).long()
         gw = gx = None
         if ctx.needs_input_grad[1]:
+            trace.count("agg.slots", b * d)
             rows = x.index_select(0, flat).reshape(b, d, -1).to(g.dtype)
             gw = (rows * g[:, None, :]).sum(-1).to(weights.dtype)
         if ctx.needs_input_grad[2]:
+            trace.count("agg.slots", b * d)
             terms = (weights.to(g.dtype)[:, :, None] * g[:, None, :]).reshape(b * d, -1)
             order = torch.argsort(flat, stable=True)
             rows = torch.zeros(x.shape[0], dtype=torch.int64, device=flat.device)

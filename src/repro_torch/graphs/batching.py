@@ -29,6 +29,7 @@ from typing import Sequence
 
 import numpy as np
 
+from .. import trace
 from .csr import CSRGraph, block_diagonal
 
 TRAFFIC_FORMAT = "repro.traffic/v1"
@@ -205,6 +206,8 @@ class GraphBatch:
         ]
 
 
+@trace.spanned("repro_torch.batching.assemble")
+@trace.timed("setup.batching_s")
 def assemble(
     graphs: Sequence[CSRGraph], policy: BucketPolicy = BucketPolicy()
 ) -> GraphBatch:
@@ -444,6 +447,7 @@ class TrafficProfile:
         return cls.from_json(Path(path).read_text())
 
 
+@trace.timed("setup.batching_s")
 def bucketize(
     graphs: Sequence[CSRGraph], policy: BucketPolicy = BucketPolicy()
 ) -> dict[tuple[int, int], list[int]]:

@@ -12,7 +12,6 @@ that cannot be built, loaded or launched raises :class:`CudaKernelError`.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import hashlib
 import os
@@ -70,43 +69,6 @@ def nvcc_starts() -> int:
     """How many ``nvcc`` builds this process has started: a process whose
     libraries are already in the build directory starts none."""
     return _NVCC_STARTS[0]
-
-
-_COUNT_LOCK = threading.Lock()
-_CAPTURING = threading.local()  # .tally: the launches of this thread's capture
-
-
-def count_launch(wrapper) -> None:
-    """Count one launch of ``wrapper``'s kernel on ``wrapper.launches``.
-    While this thread captures a CUDA graph (:func:`launch_tally`) nothing
-    runs yet: the launch is kept in the capture's tally instead, and each
-    replay of the graph adds the tally (:func:`add_launches`)."""
-    tally = getattr(_CAPTURING, "tally", None)
-    if tally is not None:
-        tally[wrapper] = tally.get(wrapper, 0) + 1
-        return
-    with _COUNT_LOCK:
-        wrapper.launches += 1
-
-
-def add_launches(tally: dict) -> None:
-    """Add a capture's tally (wrapper -> launches) to the wrappers' counts:
-    one replay of its graph launches each kernel that many times."""
-    with _COUNT_LOCK:
-        for wrapper, n in tally.items():
-            wrapper.launches += n
-
-
-@contextlib.contextmanager
-def launch_tally():
-    """Within the block, this thread's kernel launches are tallied into the
-    dict it yields rather than counted (a capture records them)."""
-    tally: dict = {}
-    _CAPTURING.tally = tally
-    try:
-        yield tally
-    finally:
-        _CAPTURING.tally = None
 
 
 class CudaKernelError(RuntimeError):

@@ -27,7 +27,8 @@ import torch
 
 from torch.utils.flop_counter import register_flop_formula
 
-from ..common import DTYPE_CODES, CudaLibrary, count_launch, refuse_grad
+from ..common import DTYPE_CODES, CudaLibrary, refuse_grad
+from ...trace import count_launch
 from .ref import attend_chunked, flash_attention_ref
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong

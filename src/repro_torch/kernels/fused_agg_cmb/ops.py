@@ -11,7 +11,8 @@ from pathlib import Path
 
 import torch
 
-from ..common import DTYPE_CODES, CudaLibrary, check_operands, count_launch, refuse_grad
+from ..common import DTYPE_CODES, CudaLibrary, check_operands, refuse_grad
+from ...trace import count_launch
 from .ref import fused_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int

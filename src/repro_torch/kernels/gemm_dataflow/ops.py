@@ -20,7 +20,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..common import DTYPE_CODES, CudaLibrary, cdiv, count_launch, refuse_grad
+from ..common import DTYPE_CODES, CudaLibrary, cdiv, refuse_grad
+from ...trace import count_launch
 from .ref import gemm_ref
 
 DATAFLOWS = ("output_stationary", "weight_stationary", "input_stationary")

@@ -13,7 +13,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..common import DTYPE_CODES, CudaLibrary, check_operands, count_launch, refuse_grad
+from ..common import DTYPE_CODES, CudaLibrary, check_operands, refuse_grad
+from ...trace import count_launch
 from .ref import spmm_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int

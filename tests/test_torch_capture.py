@@ -32,7 +32,7 @@ from repro_torch.configs import get_config
 from repro_torch.gnn import GNNConfig
 from repro_torch.gnn.layers import _segment_sum, segment_readout
 from repro_torch.graphs import from_edges
-from repro_torch.kernels.common import add_launches, count_launch, launch_tally
+from repro_torch.trace import add_launches, count_launch, launch_tally
 from repro_torch.models import params_from_numpy
 from repro_torch.tree import tree_map
 

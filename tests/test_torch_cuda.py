@@ -1147,6 +1147,62 @@ def test_launch_counts_include_replays(dev):
     assert (spmm.launches, gemm.launches) == (before[0] + 10, before[1] + 10)
 
 
+def _counted_since(before):
+    from repro_torch import trace
+
+    after = trace.counters()
+    return {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
+
+
+@pytest.mark.parametrize("policy,use_pallas,walks", [
+    ("sp_opt", True, 0), ("sp_opt", False, 2), ("pp", True, 2)])
+def test_replays_add_the_captures_tally_of_the_program_counters(dev, policy, use_pallas,
+                                                                walks):
+    """A capture tallies the eager tier's slot walks (the fused kernel
+    walks none; ``pp`` without a mesh is the eager fallback on either
+    tier), and each replay adds that tally and counts the bytes it copies
+    into the static buffers; a cold run counts its warm-up's walks too."""
+    from repro_torch import trace
+
+    prog, params, _ = captured_program(dev, policy, "AC", use_pallas)
+    x = randn((120, 28), 12, dev)
+    walk = prog.adj.v_pad * 16
+    before = trace.counters()
+    prog.run(params, x)
+    graph = the_executable(prog).graph
+    assert graph.tally.get("agg.slots", 0) == walks * walk
+    assert _counted_since(before).get("agg.slots", 0) == 2 * walks * walk
+    before = trace.counters()
+    prog.run(params, x)
+    prog.run(params, x)
+    got = _counted_since(before)
+    assert got.get("agg.slots", 0) == 2 * walks * walk
+    assert got["ell.nonzero"] == 2 * prog.adj.nonzero
+    nbytes = sum(t.numel() * t.element_size() for t in graph.static)
+    assert got["replay.calls"] == 2 and got["replay.bytes_in"] == 2 * nbytes
+    assert "setup.capture_s" not in got and "setup.bind_s" not in got
+
+
+def test_a_captured_train_step_tallies_its_backward_walk(dev):
+    """The backward runs on autograd's device thread, on the capturing
+    stream: its walk goes to the capture's tally, so each replay counts
+    the two forward walks and layer 1's backward walk."""
+    from repro_torch import trace
+    from repro_torch.gnn import make_node_classification_task
+
+    prog, params, _ = captured_program(dev, "sp_opt", "AC", False)
+    task = make_node_classification_task(_ring(120), 28, 4, device=dev)
+    walk = prog.adj.v_pad * 16
+    before = trace.counters()
+    _, new = prog.train_step(params, *task)
+    assert the_executable(prog).graph.tally["agg.slots"] == 3 * walk
+    assert _counted_since(before)["agg.slots"] == 6 * walk
+    before = trace.counters()
+    prog.train_step(new, *task)
+    prog.train_step(new, *task)
+    assert _counted_since(before)["agg.slots"] == 6 * walk
+
+
 def test_donate_releases_the_callers_storage(dev):
     prog, params, _ = captured_program(dev, "sp_opt", "AC", True)
     x = randn((120, 28), 11, dev)
