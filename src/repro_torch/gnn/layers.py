@@ -151,11 +151,22 @@ class _AggregateBand(torch.autograd.Function):
     """:func:`aggregate_band` with a backward: ``dx[idx[v, d]] += w[v, d] *
     g[v]`` and ``dw[v, d] = g[v] . x[idx[v, d]]``.  ``dx`` sums each row's
     terms in slot order (a stable sort by row, then one segment sum a row),
-    with no atomics: a step repeated on the card gives the same bits.  The
-    backward reads nothing on the host, so a captured training step holds
-    it: ``segment_reduce`` runs ``unsafe``, without its checks of
+    with no atomics: a step repeated on the card gives the same bits.
+
+    A slot of weight zero adds ``0 * g = ±0``, which leaves a sum that
+    starts at +0 unchanged wherever it lands; so it is keyed not to its
+    index but to its flat slot position modulo ``x``'s rows.  Padded slots
+    all point at row 0, and on the card ``segment_reduce`` walks each
+    (segment, column) in one thread: keyed by index, row 0's segment would
+    hold every padded slot of the band (10,400 terms at cora), keyed by
+    position no row gets more than ⌈B·D / rows⌉ of them.  Only a
+    non-finite ``g`` at such a slot tells the two apart: its NaN lands on
+    the row the slot is keyed to, not on row 0.
+
+    The backward reads nothing on the host, so a captured training step
+    holds it: ``segment_reduce`` runs ``unsafe``, without its checks of
     ``lengths`` (a negative length, lengths that miss the row count), which
-    read the device from the host; the lengths are counts of ``flat``, so
+    read the device from the host; the lengths are counts of the keys, so
     they hold by construction."""
 
     @staticmethod
@@ -176,9 +187,11 @@ class _AggregateBand(torch.autograd.Function):
         if ctx.needs_input_grad[2]:
             trace.count("agg.slots", b * d)
             terms = (weights.to(g.dtype)[:, :, None] * g[:, None, :]).reshape(b * d, -1)
-            order = torch.argsort(flat, stable=True)
+            spread = torch.arange(b * d, device=flat.device) % x.shape[0]
+            key = torch.where(weights.reshape(-1) != 0, flat, spread)
+            order = torch.argsort(key, stable=True)
             rows = torch.zeros(x.shape[0], dtype=torch.int64, device=flat.device)
-            rows.scatter_add_(0, flat, torch.ones_like(flat))
+            rows.scatter_add_(0, key, torch.ones_like(key))
             gx = torch.segment_reduce(terms[order], "sum", lengths=rows, axis=0,
                                       unsafe=True)
             gx = gx.to(x.dtype)

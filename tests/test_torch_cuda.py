@@ -756,6 +756,22 @@ def test_train_step_on_the_card_matches_the_cpu(dev, policy, order):
             torch.testing.assert_close(a[k].cpu(), b[k], rtol=2e-4, atol=2e-4)
 
 
+@pytest.mark.parametrize("seed", [7, 8])
+def test_aggregate_backward_on_the_card_equals_the_earlier_formulation(dev, seed):
+    """A band of the cora training cell's layer 1 (128 rows x 82 slots over
+    2,816 source rows, most slots padding): the backward, whose padded
+    slots are keyed by position, gives ``gw`` and ``gx`` ``torch.equal`` to
+    the earlier formulation's, which keyed them all to row 0."""
+    from aggregate_oracle import backward_before, cora_band
+    from repro_torch.gnn.layers import aggregate_band
+
+    idx, wts, x, g = (t.to(dev) for t in cora_band(seed))
+    w, xs = wts.clone().requires_grad_(), x.clone().requires_grad_()
+    gw, gx = torch.autograd.grad(aggregate_band(idx, w, xs), (w, xs), g)
+    want_w, want_x = backward_before(idx, wts, x, g)
+    assert torch.equal(gw, want_w) and torch.equal(gx, want_x)
+
+
 def _pp_train_steps(dev, mesh):
     """Two SGD steps of a GCN under a ``pp`` schedule on ``dev`` (the
     ring's 300 nodes in 10 bands of 32 a layer): with ``mesh`` and with

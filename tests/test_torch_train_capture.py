@@ -1,8 +1,9 @@
 """What lets the port capture its training steps as CUDA graphs, checked on
 the CPU: ``Program.train_step`` and ``launch.train``'s AdamW step free of
 host reads (run under ``FakeTensorMode``, which refuses a data-dependent
-output), the aggregation's backward with its segment sum unchecked and
-equal to the earlier formulation (copied here as its oracle), the state
+output), the aggregation's backward with its segment sum unchecked, its
+weight-0 slots spread over the rows, and equal to the earlier formulation
+(kept in ``aggregate_oracle.py`` as its oracle), the state
 written in place with the bits of the fresh-tensor step, the shape key's
 builds equal to the reference's retraces, the rule that keeps a CPU
 (``gloo``) mesh and a float32 MoE arch uncaptured, and what the runner does with a step that failed
@@ -17,9 +18,11 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 import repro
 import repro_torch
+from aggregate_oracle import backward_before, band, cora_band
 from hypothesis_compat import given, settings, st
 from repro.core.cost_model import GNNLayerWorkload as RefWorkload
 from repro.core.schedule import ModelSchedule as RefSchedule
+from repro.gnn.layers import aggregate_band as ref_aggregate_band
 from repro.gnn.model import make_node_classification_task as ref_task
 from repro.graphs import from_edges as ref_from_edges
 from repro_torch.checkpoint import Checkpointer
@@ -50,59 +53,30 @@ LM_ARCHS = ["smollm-135m", "recurrentgemma-2b", "xlstm-1.3b"]
 # ---------------------------------------------------------------------------
 
 
-def backward_before(indices, weights, x, g):
-    """``_AggregateBand.backward`` as the port computed it before training
-    was captured: its segment sum checked its lengths (``unsafe=False``),
-    which reads the device on the host."""
-    b, d = indices.shape
-    flat = indices.reshape(-1).long()
-    gathered = x.index_select(0, flat).reshape(b, d, -1).to(g.dtype)
-    gw = (gathered * g[:, None, :]).sum(-1).to(weights.dtype)
-    terms = (weights.to(g.dtype)[:, :, None] * g[:, None, :]).reshape(b * d, -1)
-    order = torch.argsort(flat, stable=True)
-    rows = torch.zeros(x.shape[0], dtype=torch.int64)
-    rows.scatter_add_(0, flat, torch.ones_like(flat))
-    gx = torch.segment_reduce(terms[order], "sum", lengths=rows, axis=0)
-    return gw, gx.to(x.dtype)
-
-
-def band(seed, b, d, v, f):
-    """A band of ``b`` rows of ``d`` slots over ``v`` source rows of width
-    ``f``: rows of every degree from 0 to ``d`` (padding slots point at row
-    0 with weight 0), one hub source row most slots point at, source rows
-    no slot points at, and the upstream gradient ``g``."""
-    rng = np.random.default_rng(seed)
-    idx = np.zeros((b, d), np.int64)
-    wts = np.zeros((b, d), np.float32)
-    for r in range(b):
-        deg = int(rng.integers(0, d + 1))
-        hub = rng.random(deg) < 0.5
-        idx[r, :deg] = np.where(hub, v - 1, rng.integers(0, max(v // 2, 1), deg))
-        wts[r, :deg] = rng.normal(size=deg)
-    x = rng.normal(size=(v, f)).astype(np.float32)
-    g = rng.normal(size=(b, f)).astype(np.float32)
-    return (torch.from_numpy(idx.astype(np.int32)), torch.from_numpy(wts),
-            torch.from_numpy(x), torch.from_numpy(g))
-
-
 def grads_now(idx, wts, x, g):
     w, xs = wts.clone().requires_grad_(), x.clone().requires_grad_()
     return torch.autograd.grad(aggregate_band(idx, w, xs), (w, xs), g)
 
 
-def assert_backward_equals_the_oracle(seed, b, d, v, f):
-    idx, wts, x, g = band(seed, b, d, v, f)
+def assert_backward_equals_the_oracle(seed, b, d, v, f, make=band):
+    idx, wts, x, g = make(seed, b, d, v, f)
     gw, gx = grads_now(idx, wts, x, g)
     want_w, want_x = backward_before(idx, wts, x, g)
     assert torch.equal(gw, want_w) and torch.equal(gx, want_x)
 
 
-@pytest.mark.parametrize("seed,b,d,v,f", [
-    (0, 1, 1, 1, 1), (1, 8, 3, 5, 4), (2, 40, 7, 33, 16), (3, 128, 16, 64, 8),
-    (4, 17, 32, 200, 3), (5, 64, 1, 64, 12), (6, 300, 9, 2, 5),
-])
-def test_aggregate_backward_equals_the_earlier_formulation(seed, b, d, v, f):
-    assert_backward_equals_the_oracle(seed, b, d, v, f)
+#: bands of every degree (:func:`band`), and one band of the cora training
+#: cell's layer 1, most of its slots padding (:func:`cora_band`)
+ORACLE_BANDS = [
+    pytest.param(band, s, b, d, v, f, id=f"{s}-{b}-{d}-{v}-{f}") for s, b, d, v, f in [
+        (0, 1, 1, 1, 1), (1, 8, 3, 5, 4), (2, 40, 7, 33, 16), (3, 128, 16, 64, 8),
+        (4, 17, 32, 200, 3), (5, 64, 1, 64, 12), (6, 300, 9, 2, 5)]
+] + [pytest.param(cora_band, 7, 128, 82, 2816, 16, id="cora")]
+
+
+@pytest.mark.parametrize("make,seed,b,d,v,f", ORACLE_BANDS)
+def test_aggregate_backward_equals_the_earlier_formulation(make, seed, b, d, v, f):
+    assert_backward_equals_the_oracle(seed, b, d, v, f, make)
 
 
 @settings(max_examples=60, deadline=None)
@@ -113,18 +87,21 @@ def test_aggregate_backward_property(b, d, v, f, seed):
 
 
 class SegmentSums(TorchDispatchMode):
-    """Records the ``unsafe`` flag of every ``segment_reduce`` and every op
-    that reads a tensor on the host."""
+    """Records the ``unsafe`` flag and the ``lengths`` of every
+    ``segment_reduce`` and every op that reads a tensor on the host."""
 
     def __init__(self):
         super().__init__()
-        self.unsafe, self.host_reads = [], []
+        self.unsafe, self.lengths, self.host_reads = [], [], []
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         if func is torch.ops.aten.segment_reduce.default:
-            at = [a.name for a in func._schema.arguments].index("unsafe")
+            names = [a.name for a in func._schema.arguments]
+            at = names.index("unsafe")
             self.unsafe.append(kwargs.get("unsafe", args[at] if len(args) > at else False))
+            at = names.index("lengths")
+            self.lengths.append(kwargs.get("lengths", args[at] if len(args) > at else None))
         if func in (torch.ops.aten._local_scalar_dense.default, torch.ops.aten.nonzero.default):
             self.host_reads.append(func)
         return func(*args, **kwargs)
@@ -145,6 +122,43 @@ def test_aggregate_backward_runs_its_segment_sum_unchecked():
     with FakeTensorMode(allow_non_fake_inputs=True) as fake:
         gw, gx = grads_now(*(fake.from_tensor(t) for t in (idx, wts, x, g)))
         assert gw.shape == wts.shape and gx.shape == x.shape
+
+
+@pytest.mark.parametrize("make,seed,b,d,v,f", ORACLE_BANDS)
+def test_aggregate_backward_spreads_zero_weight_slots(make, seed, b, d, v, f):
+    """Slots of weight zero (the padding, which points at row 0) are keyed
+    by their position, not their index: no row's segment holds more than
+    its real in-degree and ⌈B·D / rows⌉ of them.  Keyed by index, row 0's
+    segment would hold every padded slot of the band."""
+    idx, wts, x, g = make(seed, b, d, v, f)
+    with SegmentSums() as mode:
+        grads_now(idx, wts, x, g)
+    (lengths,) = mode.lengths
+    real = torch.zeros(v, dtype=torch.int64)
+    real.scatter_add_(0, idx.reshape(-1).long(), (wts.reshape(-1) != 0).long())
+    assert int(lengths.sum()) == b * d
+    assert bool((lengths <= real + -(-b * d // v)).all())
+
+
+def test_a_nan_gradient_at_a_padded_slot_lands_where_the_slot_is_keyed():
+    """A difference by design from the reference: where ``g`` is NaN in a
+    row with padded slots, ``0 * NaN`` puts NaN on row 0 in the reference's
+    scatter, and on the rows the padded slots are keyed to (their flat
+    position modulo the rows) in the port.  Real slots put it on their
+    index in both; every other entry agrees."""
+    idx, wts, x, g = cora_band(7, b=6, d=5, v=11, f=3)
+    idx[2], wts[2] = torch.tensor([4, 9, 0, 0, 0]), torch.tensor([0.5, 0.25, 0, 0, 0])
+    g[2, 1] = float("nan")
+    _, gx = grads_now(idx, wts, x, g)
+    _, ref = jax.vjp(lambda a: ref_aggregate_band(idx.numpy(), wts.numpy(), a), x.numpy())
+    want = torch.from_numpy(np.array(ref(g.numpy())[0]))
+    def nan_rows(t):
+        return set(torch.isnan(t[:, 1]).nonzero().flatten().tolist())
+
+    assert nan_rows(want) == {0, 4, 9}
+    assert nan_rows(gx) == {4, 9} | {(2 * 5 + j) % 11 for j in (2, 3, 4)}
+    assert not torch.isnan(gx[:, [0, 2]]).any()
+    torch.testing.assert_close(gx[:, [0, 2]], want[:, [0, 2]], rtol=2e-4, atol=2e-4)
 
 
 # ---------------------------------------------------------------------------
