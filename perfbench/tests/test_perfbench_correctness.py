@@ -25,7 +25,8 @@ import repro_torch  # noqa: E402
 from repro_torch.api import Program  # noqa: E402
 from repro_torch.graphs.csr import from_edges  # noqa: E402
 
-from test_perfbench_harness import TINY, tiny_run  # noqa: E402
+from cell_sizes import CONTROL, TINY  # noqa: E402
+from test_perfbench_harness import tiny_run  # noqa: E402
 
 
 def small_task(seed=0, n_classes=7, f_in=24):
@@ -185,19 +186,6 @@ def _control_fails(job, limits):
     control = job.readings("control")
     assert all(program[k] <= v for k, v in limits.items()), (program, limits)
     assert any(control[k] > v for k, v in limits.items()), (control, limits)
-
-
-#: sizes at which the control's rounding shows on the CPU in a test's time
-CONTROL = {
-    "gcn-reddit-bin.score": {"config": {"model": {"f_in": 512},
-                                        "dataset": {"n_graphs": 24, "avg_nodes": 60,
-                                                    "avg_edges": 70}}},
-    "gcn-cora.train": {"config": {"model": {"f_in": 512},
-                                  "dataset": {"avg_nodes": 400, "avg_edges": 1600}}},
-    "gcn-cora.refresh": {"config": {"model": {"f_in": 512},
-                                    "dataset": {"avg_nodes": 400, "avg_edges": 1600}},
-                         "traffic": {"snapshots": 2}},
-}
 
 
 @pytest.mark.parametrize("workload", sorted(CONTROL))

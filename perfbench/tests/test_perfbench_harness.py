@@ -7,6 +7,7 @@ old benchmark folders.
 """
 import ast
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -20,20 +21,8 @@ REPO = BENCH.parent
 sys.path[:0] = [str(BENCH), str(REPO / "src")]
 
 import harness  # noqa: E402
+from cell_sizes import TINY  # noqa: E402
 
-#: small sizes of each cell that a CPU test run holds
-TINY = {
-    "gcn-reddit-bin.score": {
-        "config": {"model": {"f_in": 48},
-                   "dataset": {"n_graphs": 70, "avg_nodes": 40, "avg_edges": 50}},
-        "traffic": {"trace_calls": 4}},
-    "gcn-cora.train": {
-        "config": {"model": {"f_in": 40}, "dataset": {"avg_nodes": 300, "avg_edges": 1200}},
-        "traffic": {"labelled_per_class": 5, "trace_calls": 3}},
-    "gcn-cora.refresh": {
-        "config": {"model": {"f_in": 40}, "dataset": {"avg_nodes": 300, "avg_edges": 1200}},
-        "traffic": {"snapshots": 4, "trace_calls": 5}},
-}
 CONTRACT_KEYS = {"correct", "attempted", "failed", "metrics", "device"}
 
 
@@ -102,17 +91,18 @@ def _files(root: Path) -> dict:
             if p.is_file() and "__pycache__" not in p.parts}
 
 
-@pytest.mark.parametrize("trace", [False, True])
-@pytest.mark.parametrize("workload", sorted(TINY))
-def test_a_second_kind_of_model_runs_by_new_files_alone(workload, trace, tmp_path):
-    """A copy of the benchmark with a GraphSAGE configuration, its plain
-    reference and its cell added as new files and entries: the harness
-    runs the port's SAGE model and holds it against that reference; no
-    file of the benchmark changed."""
+def _checkout(tmp_path: Path) -> Path:
+    """A copy of ``perfbench/`` in a checkout of its own."""
     repo = tmp_path / "checkout"
     shutil.copytree(BENCH, repo / "perfbench", ignore=shutil.ignore_patterns("__pycache__"))
-    before = _files(repo / "perfbench")
-    s = spec()
+    return repo
+
+
+def _add_sage(repo: Path, s: dict, workload: str) -> str:
+    """Add to the checkout ``repo`` and its spec ``s`` a GraphSAGE
+    configuration, its plain reference (``tests/samples/sage.py``) and its
+    cell on ``workload``'s traffic, as new files and entries; returns the
+    new cell's name."""
     cell = harness.Benchmark().cell(workload)
     entry = next(c for c in s["configs"] if c["name"] == cell["config"])
     cfg = json.loads((REPO / entry["file"]).read_text())
@@ -130,11 +120,109 @@ def test_a_second_kind_of_model_runs_by_new_files_alone(workload, trace, tmp_pat
     for m in s["end_to_end"] + s["per_layer"]:
         if workload in m.get("workloads", []):
             m["workloads"].append(new_cell)
+    return new_cell
+
+
+@pytest.mark.parametrize("trace", [False, True])
+@pytest.mark.parametrize("workload", sorted(TINY))
+def test_a_second_kind_of_model_runs_by_new_files_alone(workload, trace, tmp_path):
+    """A copy of the benchmark with a GraphSAGE configuration, its plain
+    reference and its cell added as new files and entries: the harness
+    runs the port's SAGE model and holds it against that reference; no
+    file of the benchmark changed."""
+    repo = _checkout(tmp_path)
+    before = _files(repo / "perfbench")
+    s = spec()
+    new_cell = _add_sage(repo, s, workload)
     (repo / "BENCHMARK.json").write_text(json.dumps(s))
     r = harness.run_cell(new_cell, 2**31 + 5, 0.1, trace, t0=time.perf_counter(),
                          device="cpu", repo=repo, overrides=TINY[workload],
                          store=str(tmp_path / "store"))
     assert r["correct"] is True and r["failed"] == 0, r["compared"]
+    after = _files(repo / "perfbench")
+    assert {k: v for k, v in after.items() if k in before} == before
+
+
+def _add_moe_sample(repo: Path, s: dict) -> str:
+    """Add to the checkout ``repo`` and its spec ``s`` a cell of a new kind
+    of job, as new files and entries: the bfloat16 MoE layer of
+    ``tests/samples/moe_ffn.py`` (not a ``base.Job``), its reference, its
+    configuration at Mellum2-12B-A2.5B's MoE widths, its traffic, limits
+    and test sizes, reported as ``forward_ms`` and by a new per-layer
+    metric; returns the cell's name."""
+    bench = repo / "perfbench"
+    samples = BENCH / "tests" / "samples"
+    shutil.copy(samples / "moe_ffn.py", bench / "jobs" / "moe_ffn.py")
+    shutil.copy(samples / "moe_ffn_reference.py", bench / "references" / "moe_ffn.py")
+    source = "https://huggingface.co/JetBrains/Mellum2-12B-A2.5B-Instruct/blob/main/config.json"
+    name, cell = "moe-ffn-sample", "moe-ffn-sample.moe_ffn"
+    (bench / "configs" / f"{name}.json").write_text(json.dumps({
+        "name": name, "source": source, "reference": "references/moe_ffn.py",
+        "model": {"kind": "moe_ffn", "hidden_size": 2304, "expert_width": 896,
+                  "n_experts": 64, "top_k": 8, "dtype": "bfloat16"}}))
+    (bench / "traffic" / "moe_ffn.json").write_text(json.dumps(
+        {"job": "moe_ffn", "batches": 8, "batch": 4, "seq_len": 2048, "trace_calls": 16}))
+    # program 4.30e-3..1.15e-2, control (float8 e4m3 operands) 5.06e-2..7.69e-2,
+    # over 14 seeds on the CPU at the test sizes below
+    (bench / "limits" / f"{cell}.json").write_text(json.dumps(
+        {"limits": {"max_rel_err": 0.025}}))
+    tiny = {"config": {"model": {"hidden_size": 64, "expert_width": 32, "n_experts": 8,
+                                 "top_k": 2}},
+            "traffic": {"batches": 3, "batch": 2, "seq_len": 16, "trace_calls": 4}}
+    (bench / "tests" / "cells" / f"{cell}.json").write_text(json.dumps(
+        {"tiny": tiny, "control": tiny}))
+    (bench / "metrics" / "mfu.moe_ffn.py").write_text(
+        '"""Model FLOPs of the window\'s forwards over its seconds and the peak of\n'
+        'the configuration\'s type, in percent."""\n'
+        "from yardstick import mfu_pct as read  # noqa: F401\n")
+    s["configs"].append({"name": name, "source": source,
+                         "file": f"perfbench/configs/{name}.json", "reduced": ["num_hidden_layers"],
+                         "why": "test"})
+    s["workloads"].append({"name": cell, "config": name, "traffic": "moe_ffn", "chips": 1,
+                           "why": "test"})
+    next(m for m in s["end_to_end"] if m["name"] == "forward_ms")["workloads"].append(cell)
+    s["per_layer"].append({"name": "mfu.moe_ffn", "unit": "%", "better": "higher",
+                           "source": "host_clock", "layer": "Whole step",
+                           "moves": "forward_ms", "workloads": [cell]})
+    return cell
+
+
+def test_a_cell_is_added_by_new_files_alone_tests_included(tmp_path):
+    """A copy of the benchmark given two cells by new files and entries
+    alone, each with its ``tests/cells/<cell>.json``: a GraphSAGE cell on
+    an existing job, and a cell of a new kind of job with a new per-layer
+    metric.  The copy's own tests, run there, find both cells and pass on
+    them, and no file that the copy had changed."""
+    repo = _checkout(tmp_path)
+    (repo / "src").symlink_to(REPO / "src")
+    before = _files(repo / "perfbench")
+    s = spec()
+    sage = _add_sage(repo, s, "gcn-cora.refresh")
+    shutil.copy(BENCH / "tests" / "cells" / "gcn-cora.refresh.json",
+                repo / "perfbench" / "tests" / "cells" / f"{sage}.json")
+    moe = _add_moe_sample(repo, s)
+    (repo / "BENCHMARK.json").write_text(json.dumps(s))
+    here, correctness = ("perfbench/tests/test_perfbench_harness.py",
+                         "perfbench/tests/test_perfbench_correctness.py")
+    whole = ["test_every_name_resolves", "test_no_module_imports_jax_or_the_jax_package",
+             "test_the_references_import_nothing_of_the_program"]
+    want = {f"{here}::{t}" for t in whole}
+    want.add(f"{correctness}::test_every_cell_has_a_control_size")
+    for cell in (sage, moe):
+        want |= {f"{here}::test_result_line_has_the_contract_keys[{cell}-{trace}]"
+                 for trace in (False, True)}
+        want.add(f"{correctness}::test_the_control_fails_on_the_cpu[{cell}]")
+    select = (" or ".join(whole) + " or test_every_cell_has_a_control_size or "
+              "((test_result_line_has_the_contract_keys or test_the_control_fails_on_the_cpu)"
+              f" and ({sage} or {moe}))")
+    out = subprocess.run([sys.executable, "-m", "pytest", "-q", "-rA", "-p", "no:cacheprovider",
+                          "--rootdir", str(repo), "--basetemp", str(tmp_path / "basetemp"),
+                          "-k", select, here, correctness],
+                         capture_output=True, text=True, timeout=600, cwd=repo,
+                         env={**os.environ, "PYTHONDONTWRITEBYTECODE": "1"})
+    assert out.returncode == 0, out.stdout[-4000:] + out.stderr[-2000:]
+    passed = {line.split()[1] for line in out.stdout.splitlines() if line.startswith("PASSED ")}
+    assert passed == want, out.stdout[-4000:]
     after = _files(repo / "perfbench")
     assert {k: v for k, v in after.items() if k in before} == before
 
