@@ -1,6 +1,7 @@
 """Architecture registry: ``--arch <id>`` lookup for all assigned configs
 (copied from :mod:`repro.configs.registry`; every id resolves, though only
-the dense ``attn`` archs run in the port so far)."""
+the dense ``attn`` archs run in the port so far), and for the port's own
+archs (``PORT_ARCH_IDS``), which the reference has not."""
 from __future__ import annotations
 
 import importlib
@@ -19,6 +20,8 @@ ARCH_IDS = (
     "recurrentgemma-2b",
     "xlstm-1.3b",
 )
+#: archs of the port alone; ``get_config`` resolves them too
+PORT_ARCH_IDS = ("mellum2-12b-a2.5b",)
 
 _MODULES = {
     "granite-8b": "granite_8b",
@@ -31,12 +34,13 @@ _MODULES = {
     "granite-moe-3b-a800m": "granite_moe_3b_a800m",
     "recurrentgemma-2b": "recurrentgemma_2b",
     "xlstm-1.3b": "xlstm_1_3b",
+    "mellum2-12b-a2.5b": "mellum2_12b_a2p5b",
 }
 
 
 def get_config(arch: str) -> ArchConfig:
     if arch not in _MODULES:
-        raise KeyError(f"unknown arch {arch!r}; have {ARCH_IDS}")
+        raise KeyError(f"unknown arch {arch!r}; have {ARCH_IDS + PORT_ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
     return mod.CONFIG
 

@@ -132,7 +132,10 @@ def _heads_axis(cfg: ArchConfig) -> str | None:
     return "heads" if hkv % ts == 0 and (hkv * g_new) % ts == 0 else None
 
 
-def _project_qkv(cfg: ArchConfig, p: dict, x: torch.Tensor, positions):
+def _project_qkv(cfg: ArchConfig, p: dict, x: torch.Tensor, positions, window: int = 0):
+    """q, k and v by heads, q and k rotated: a full-attention layer
+    (``window`` 0) by ``cfg.yarn``'s RoPE where the config has one, a
+    windowed layer by plain RoPE."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     rep, g_new, _ = head_alignment(cfg)
@@ -150,7 +153,9 @@ def _project_qkv(cfg: ArchConfig, p: dict, x: torch.Tensor, positions):
                      "batch", None, heads, None)
 
     q, k, v = heads_of(wq, hq), heads_of(wk, hkv), heads_of(wv, hkv)
-    return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
+    yarn = None if window > 0 else cfg.yarn
+    return (rope(q, positions, cfg.rope_theta, yarn), rope(k, positions, cfg.rope_theta, yarn),
+            v)
 
 
 def _group(q: torch.Tensor, n_kv: int) -> torch.Tensor:
@@ -192,7 +197,7 @@ def attention(
     is how a caller builds the plain twin of a run on the card.
     """
     b, s, _ = x.shape
-    q, k, v = _project_qkv(cfg, p, x, positions)
+    q, k, v = _project_qkv(cfg, p, x, positions, window)
     pos1 = positions[0] if positions.dim() > 1 else positions
     if cfg.attn_policy == "seq":
         core = _attend_seq
@@ -256,7 +261,7 @@ def decode_attention(
     else:
         cur_index = int(cur_index)
         positions = torch.full((b, 1), cur_index, dtype=torch.int32, device=x.device)
-    q, k_new, v_new = _project_qkv(cfg, p, x, positions)
+    q, k_new, v_new = _project_qkv(cfg, p, x, positions, window)
     slot = cur_index % size if window > 0 else cur_index
     if seq_dim is not None:
         out = _decode_over_slots(cfg, q, k_new, v_new, cache, cur_index, slot, window,

@@ -7,9 +7,14 @@ pattern is a repeating unit of block kinds:
   * ``attn``   — full causal self-attention + MLP
   * ``local``  — sliding-window attention + MLP
   * ``moe``    — attention + mixture-of-experts FFN
+  * ``local_moe`` — sliding-window attention + mixture-of-experts FFN
+                 (port only: Mellum2's windowed layers)
   * ``rglru``  — RG-LRU recurrent block + MLP (Griffin/RecurrentGemma)
   * ``mlstm``  — matrix-memory xLSTM block (no FFN)
   * ``slstm``  — scalar-memory xLSTM block (no FFN)
+
+Fields past the reference's (``d_head``, ``yarn``) are the port's own; at
+their defaults a config computes what the reference's does.
 """
 from __future__ import annotations
 
@@ -23,6 +28,28 @@ class MoEConfig:
     top_k: int = 8
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01
+
+
+@dataclass(frozen=True)
+class YarnConfig:
+    """YaRN's rotary frequencies (Peng et al. 2023, arXiv:2309.00071), as
+    the published ``rope_type: "yarn"`` computes them: each frequency
+    blends the original and the ``factor``-times-slower one by a ramp over
+    the dimensions whose wavelength lies between ``beta_fast`` and
+    ``beta_slow`` rotations in ``original_max_position_embeddings``
+    positions, and cos and sin are scaled by ``attention_factor``."""
+
+    factor: float
+    original_max_position_embeddings: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    attention_factor: float = 1.0
+
+
+#: block kinds that attend (with a KV cache), over a window, and with MoE
+ATTENTION_KINDS = ("attn", "local", "moe", "local_moe")
+WINDOWED_KINDS = ("local", "local_moe")
+MOE_KINDS = ("moe", "local_moe")
 
 
 @dataclass(frozen=True)
@@ -52,10 +79,14 @@ class ArchConfig:
     # paper's fused dataflow (chunked online softmax); "seq" materializes
     # the S x S score matrix (only feasible for small smoke shapes).
     attn_policy: str = "sp_opt"
+    # the port's own fields (not in the reference's config)
+    d_head: int = 0  # head width where it is not d_model // n_heads (0 -> that)
+    # YaRN on the full-attention layers (windowed layers keep plain RoPE)
+    yarn: YarnConfig | None = None
 
     @property
     def head_dim(self) -> int:
-        return self.d_model // self.n_heads
+        return self.d_head or self.d_model // self.n_heads
 
     @property
     def rnn_width(self) -> int:
@@ -73,19 +104,25 @@ class ArchConfig:
         eligibility)."""
         return all(k not in ("attn", "moe") for k in self.block_pattern)
 
+    def window_of(self, kind: str) -> int:
+        """The attention window of a block kind (0: full attention)."""
+        return self.window if kind in WINDOWED_KINDS else 0
+
     def param_count(self) -> int:
-        """Analytic parameter count (used for 6·N·D roofline FLOPs)."""
+        """Analytic parameter count (used for 6·N·D roofline FLOPs).  The
+        final norm's ``d_model`` scales are left out, as the reference
+        leaves them out: a model's parameter tree holds that many more."""
         d, hd = self.d_model, self.head_dim
         total = 0
         if not self.embedded_inputs:
             total += self.vocab * d  # input embedding
         total += self.vocab * d if not self.tie_embeddings else 0  # head
         for kind in self.layer_kinds:
-            if kind in ("attn", "local", "moe"):
+            if kind in ATTENTION_KINDS:
                 attn = d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd)
                 attn += (self.n_heads * hd) * d
                 total += attn
-                if kind == "moe":
+                if kind in MOE_KINDS:
                     e = self.moe.n_experts
                     total += d * e  # router
                     total += e * (3 * d * self.d_ff)  # gated experts
@@ -110,7 +147,7 @@ class ArchConfig:
         expert_params = sum(
             3 * self.d_model * self.d_ff * e
             for kind in self.layer_kinds
-            if kind == "moe"
+            if kind in MOE_KINDS
         )
         return full - expert_params + expert_params * k // e
 

@@ -8,13 +8,14 @@ the generator's own device and place the result on ``device``.
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from .config import ArchConfig
+from .config import ArchConfig, YarnConfig
 from .sharding import shard
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -74,27 +75,58 @@ def init_norm_scale(cfg: ArchConfig, device=None) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=16)
-def _rope_freqs(d: int, theta: float, device: torch.device) -> torch.Tensor:
-    """The rotary frequencies, built once per (d, theta, device): a fresh
-    host-to-device copy in every call would make the host wait for the
-    device twice per layer of each decode step."""
+def _rope_freqs(d: int, theta: float, device: torch.device,
+                yarn: YarnConfig | None = None) -> torch.Tensor:
+    """The rotary frequencies, built once per (d, theta, yarn, device): a
+    fresh host-to-device copy in every call would make the host wait for
+    the device twice per layer of each decode step."""
+    if yarn is not None:
+        return torch.as_tensor(yarn_inv_freq(d, theta, yarn), dtype=torch.float32,
+                               device=device)
     freqs = 1.0 / (theta ** (np.arange(0, d // 2, dtype=np.float32) * 2.0 / d))
     return torch.as_tensor(freqs, dtype=torch.float32, device=device)
 
 
-def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+def yarn_correction_range(d: int, theta: float, yarn: YarnConfig) -> tuple[int, int]:
+    """The dimensions (``low``, ``high``) between which YaRN's ramp runs:
+    where a frequency turns ``beta_fast`` and ``beta_slow`` times in the
+    original context, floored and ceiled, clamped to ``[0, d - 1]``."""
+    def corr(rotations):
+        return (d * math.log(yarn.original_max_position_embeddings / (rotations * 2 * math.pi))
+                / (2 * math.log(theta)))
+    low, high = math.floor(corr(yarn.beta_fast)), math.ceil(corr(yarn.beta_slow))
+    return max(low, 0), min(high, d - 1)
+
+
+def yarn_inv_freq(d: int, theta: float, yarn: YarnConfig) -> np.ndarray:
+    """YaRN's inverse frequencies in float32: the original ones
+    ``theta^(-2i/d)`` past ``high``, those ``factor`` times slower below
+    ``low``, blended linearly between."""
+    pos_freqs = theta ** (np.arange(0, d, 2, dtype=np.float32) / np.float32(d))
+    extra, inter = 1.0 / pos_freqs, 1.0 / (np.float32(yarn.factor) * pos_freqs)
+    low, high = yarn_correction_range(d, theta, yarn)
+    span = high - low if high != low else 0.001
+    ramp = np.clip((np.arange(d // 2, dtype=np.float32) - low) / np.float32(span), 0, 1)
+    return (inter * ramp + extra * (1 - ramp)).astype(np.float32)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+         yarn: YarnConfig | None = None) -> torch.Tensor:
     """x: (..., S, H, D); positions: (..., S).  Frequencies are built in
     numpy float32 and the rotation computed in float32, as the reference
-    does."""
+    does.  With ``yarn`` the frequencies are YaRN's and cos and sin are
+    scaled by its ``attention_factor`` (so q . k by its square)."""
     d = x.shape[-1]
     half = d // 2
     # a meta tensor (the dry-run's traces) is free to make, and a cached one
     # would carry one trace's fake tensors into the next
     freqs = (_rope_freqs.__wrapped__ if x.device.type == "meta" else _rope_freqs)(
-        d, theta, x.device)
+        d, theta, x.device, yarn)
     ang = positions[..., None].float() * freqs  # (..., S, half)
     sin = torch.sin(ang)[..., None, :]  # broadcast over heads
     cos = torch.cos(ang)[..., None, :]
+    if yarn is not None:
+        sin, cos = sin * yarn.attention_factor, cos * yarn.attention_factor
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)

@@ -24,10 +24,11 @@ is structurally SpMM -> GEMM -> SpMM.  The reference's three paths:
 
 The reference's ``ragged_dot`` is an XLA operation, not a Pallas kernel,
 so the grouped product here is PyTorch's grouped matrix product
-(``torch._grouped_mm``) over the expert-sorted rows: three launches a
-layer, whatever the expert count, with each expert's segment end a device
-tensor (the cumulative sum of the per-expert counts), so the layer reads
-nothing on the host and a CUDA graph can hold it.  On the card the bf16
+(``torch._grouped_mm``, through :func:`grouped_mm`, which counts its
+launches) over the expert-sorted rows: three launches a layer, whatever
+the expert count, with each expert's segment end a device tensor (the
+cumulative sum of the per-expert counts), so the layer reads nothing on
+the host and a CUDA graph can hold it.  On the card the bf16
 product runs CUTLASS's grouped GEMM, which reads the ends on the device;
 its float32 route copies them to the host (the CUDA graphs of
 :mod:`.transformer` leave a float32 MoE uncaptured by rule).
@@ -47,6 +48,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import trace
 from ..device import resolve_device
 from .config import ArchConfig
 from .layers import _act, normal, torch_dtype
@@ -104,13 +106,25 @@ def moe_dense(cfg: ArchConfig, p: dict, x: torch.Tensor):
     return out.reshape(b, s, d), aux
 
 
+def grouped_mm(rows: torch.Tensor, w: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
+    """``torch._grouped_mm``: rows ``ends[j-1] .. ends[j] - 1`` times
+    ``w[j]``, one launch, counted on ``grouped_mm.launches``."""
+    out = torch._grouped_mm(rows, w, offs=ends)
+    trace.count_launch(grouped_mm)
+    return out
+
+
+#: launches since the process started (see ``repro_torch.trace``)
+grouped_mm.launches = 0
+
+
 def _grouped_product(cfg: ArchConfig, xs, ends, w_gate, w_up, w_down) -> torch.Tensor:
     """The gated expert FFN over the expert-sorted rows ``xs``: three
     grouped products, each multiplying rows ``ends[j-1] .. ends[j] - 1`` by
     expert ``j``'s weight, ``ends`` (int32) read on the device."""
-    g = torch._grouped_mm(xs, w_gate, offs=ends)
-    h = _act(cfg, g) * torch._grouped_mm(xs, w_up, offs=ends)
-    return torch._grouped_mm(h, w_down, offs=ends)
+    g = grouped_mm(xs, w_gate, ends)
+    h = _act(cfg, g) * grouped_mm(xs, w_up, ends)
+    return grouped_mm(h, w_down, ends)
 
 
 def _grouped_product_plain(cfg: ArchConfig, xs, ends, w_gate, w_up, w_down) -> torch.Tensor:
@@ -145,6 +159,9 @@ def moe_ragged(cfg: ArchConfig, p: dict, x: torch.Tensor):
     unsorted = torch.empty_like(y)
     unsorted[order] = y * w[:, None]
     out = unsorted.reshape(t, k, d).sum(dim=1)
+    trace.count("moe.calls")
+    trace.count("moe.dispatch_bytes", xs.numel() * xs.element_size()
+                + unsorted.numel() * unsorted.element_size())
     return out.reshape(b, s, d), aux
 
 

@@ -7,7 +7,13 @@ stack per pattern position, every leaf with a leading layer axis — and
 The reference's ``lax.scan`` over the stacks is a Python loop over the
 layer index here.  Every block kind of the reference is ported: ``attn``,
 ``local`` (``attn`` under ``cfg.window``), ``moe``, ``rglru``, ``mlstm``
-and ``slstm``.
+and ``slstm``; ``local_moe`` (``moe`` under ``cfg.window``, with ``local``'s
+ring-buffer cache) is the port's own.
+
+A block's attention and its MoE FFN run in the spans
+``repro_torch.model.attention`` and ``repro_torch.model.moe`` while a
+profiler records (:func:`repro_torch.trace.span`, which records nothing
+while a CUDA graph captures).
 
 Decode updates the cache in place: each layer's state is a view into the
 stacked cache, so a KV slot is written and a recurrent state is copied
@@ -23,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from ..capture import CapturedGraph
 from ..device import resolve_device
 from ..tree import leaves
@@ -33,7 +40,7 @@ from .attention import (
     decode_attention,
     init_attention,
 )
-from .config import ArchConfig
+from .config import ATTENTION_KINDS, MOE_KINDS, ArchConfig
 from .layers import (
     embed_tokens,
     init_embeddings,
@@ -67,10 +74,10 @@ from .xlstm import (
 def init_block(cfg: ArchConfig, kind: str, generator: torch.Generator,
                device=None) -> dict:
     p = {"ln1": init_norm_scale(cfg, device)}
-    if kind in ("attn", "local", "moe"):
+    if kind in ATTENTION_KINDS:
         p["attn"] = init_attention(cfg, generator, device)
         p["ln2"] = init_norm_scale(cfg, device)
-        if kind == "moe":
+        if kind in MOE_KINDS:
             p["moe"] = init_moe(cfg, generator, device)
         else:
             p["mlp"] = init_mlp(cfg, generator, device)
@@ -92,13 +99,14 @@ def apply_block(cfg: ArchConfig, kind: str, p: dict, x, positions, *,
     """Full-sequence block application. Returns (x, aux_loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = norm(cfg, x, p["ln1"])
-    if kind in ("attn", "local", "moe"):
-        win = cfg.window if kind == "local" else 0
-        x = x + attention(cfg, p["attn"], h, positions, window=win,
-                          use_kernels=use_kernels)
+    if kind in ATTENTION_KINDS:
+        with trace.span("repro_torch.model.attention"):
+            x = x + attention(cfg, p["attn"], h, positions, window=cfg.window_of(kind),
+                              use_kernels=use_kernels)
         h2 = norm(cfg, x, p["ln2"])
-        if kind == "moe":
-            ff, aux = moe_ffn(cfg, p["moe"], h2)
+        if kind in MOE_KINDS:
+            with trace.span("repro_torch.model.moe"):
+                ff, aux = moe_ffn(cfg, p["moe"], h2)
             x = x + ff
         else:
             x = x + mlp(cfg, p["mlp"], h2)
@@ -116,10 +124,8 @@ def apply_block(cfg: ArchConfig, kind: str, p: dict, x, positions, *,
 
 def init_block_state(cfg: ArchConfig, kind: str, batch: int, max_len: int,
                      device=None):
-    if kind in ("attn", "moe"):
-        return KVCache.zeros(cfg, batch, max_len, device=device)
-    if kind == "local":
-        return KVCache.zeros(cfg, batch, max_len, window=cfg.window, device=device)
+    if kind in ATTENTION_KINDS:
+        return KVCache.zeros(cfg, batch, max_len, window=cfg.window_of(kind), device=device)
     if kind == "rglru":
         return RGLRUState.zeros(cfg, batch, device)
     if kind == "mlstm":
@@ -150,12 +156,12 @@ def decode_block(cfg: ArchConfig, kind: str, p: dict, x, state, index):
     in place (the KV cache by :func:`decode_attention`, a recurrent state
     by copying the new one into it)."""
     h = norm(cfg, x, p["ln1"])
-    if kind in ("attn", "local", "moe"):
-        win = cfg.window if kind == "local" else 0
-        a, state = decode_attention(cfg, p["attn"], h, state, index, window=win)
+    if kind in ATTENTION_KINDS:
+        a, state = decode_attention(cfg, p["attn"], h, state, index,
+                                    window=cfg.window_of(kind))
         x = x + a
         h2 = norm(cfg, x, p["ln2"])
-        if kind == "moe":
+        if kind in MOE_KINDS:
             ff, _ = moe_ffn(cfg, p["moe"], h2)
             x = x + ff
         else:
@@ -319,7 +325,7 @@ def _shard_state(cfg: ArchConfig, kind: str, state, stacked: bool = False):
     one): KV (B, S, H, D) over batch and heads, recurrent states over the
     batch only, as the reference pins them."""
     lead = (None,) if stacked else ()
-    if kind in ("attn", "local", "moe"):
+    if kind in ATTENTION_KINDS:
         spec = lead + ("batch", None, _heads_axis(cfg), None)
         return type(state)(*(shard(t, *spec) for t in state))
     return type(state)(*(shard(t, *lead, "batch", *(None,) * (t.dim() - len(lead) - 1))
@@ -358,7 +364,8 @@ def captures_decode(cfg: ArchConfig, device, cache=None) -> bool:
     (``attention._decode_over_slots``).  A static rule on the arch, its
     dtype, the device, the mesh and the cache's placements, not a
     fallback: a capture that fails raises."""
-    host_read = "moe" in cfg.layer_kinds and torch_dtype(cfg) != torch.bfloat16
+    host_read = (any(k in MOE_KINDS for k in cfg.layer_kinds)
+                 and torch_dtype(cfg) != torch.bfloat16)
     return (torch.device(device).type == "cuda" and not host_read
             and captures_mesh(current_mesh()) and not sequence_placed(cfg, cache))
 
@@ -378,9 +385,9 @@ def sequence_placed(cfg: ArchConfig, cache) -> bool:
 
     _, pat, rem = _layer_plan(cfg)
     kv = [(st.k, 2) for kind, st in zip(pat, cache["scanned"])
-          if kind in ("attn", "local", "moe") and st is not None]
+          if kind in ATTENTION_KINDS and st is not None]
     kv += [(st.k, 1) for kind, st in zip(rem, cache["remainder"])
-           if kind in ("attn", "local", "moe")]
+           if kind in ATTENTION_KINDS]
     return any(isinstance(pl, Shard) and pl.dim == dim
                for k, dim in kv for pl in getattr(k, "placements", ()))
 

@@ -13,7 +13,10 @@ set-up phase.  :func:`counters` returns them as they stand.
   copies into its static buffers, and the replays;
 - ``setup.bind_s``, ``setup.capture_s`` and ``setup.batching_s``: host
   seconds in ``Program.bind`` (the ELL build and its upload), in capturing
-  graphs (warm-up and capture) and in ``bucketize`` / ``assemble``.
+  graphs (warm-up and capture) and in ``bucketize`` / ``assemble``;
+- ``moe.calls`` and ``moe.dispatch_bytes``: MoE layers run by the
+  grouped product (``models.moe.moe_ragged``), and the bytes their expert
+  sort's gather and weighted un-sort write, counted from shapes.
 
 Kernel launches are counted on each wrapper's own ``launches`` attribute
 (:func:`count_launch`).  While a thread captures a CUDA graph nothing
@@ -27,10 +30,12 @@ capture at a time in a process).
 Spans are ``torch.profiler.record_function`` ranges named
 ``repro_torch.<layer>.<phase>``, opened at host boundaries (``Program.run``,
 ``train_step`` and ``bind``, a capture's warm-up and recording, a replay's
-copies and launch, batch assembly) only while a torch profiler records:
-they land in its trace beside the card's kernels, on its clock.  With no
-profiler on, :func:`span` is one flag check and records nothing.  No span
-sits inside a captured function, which runs once, at capture.
+copies and launch, batch assembly, an LM block's attention and MoE FFN)
+only while a torch profiler records: they land in its trace beside the
+card's kernels, on its clock.  With no
+profiler on, :func:`span` is one flag check and records nothing.  A span
+opened inside a function that a CUDA graph captures records nothing: the
+function runs once, at capture (the LM blocks' spans in a captured step).
 """
 from __future__ import annotations
 
@@ -132,10 +137,16 @@ def timed(name: str):
 
 def span(name: str):
     """A ``record_function(name)`` range while a torch profiler records,
-    else :data:`NO_SPAN`, which records nothing."""
-    if torch.autograd._profiler_enabled():
+    else :data:`NO_SPAN`, which records nothing; :data:`NO_SPAN` too while
+    this thread's stream captures a CUDA graph, whose function runs once,
+    at capture."""
+    if torch.autograd._profiler_enabled() and not _capturing():
         return record_function(name)
     return NO_SPAN
+
+
+def _capturing() -> bool:
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
 
 
 def spanned(name: str):
