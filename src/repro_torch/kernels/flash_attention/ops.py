@@ -28,20 +28,25 @@ import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from ..common import DTYPE_CODES, CudaLibrary, refuse_grad
-from ...trace import count_launch
+from ...trace import count, count_launch
 from .ref import attend_chunked, flash_attention_ref
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 LIBRARY = CudaLibrary(
     Path(__file__).with_name("flash_attention.cu"),
     {"flash_attention_launch":
-        [_P] * 6 + [_I] * 8 + [ctypes.c_float] + [_L] * 12 + [_I, _I, _P]},
+        [_P] * 6 + [_I] * 8 + [ctypes.c_float] + [_L] * 12 + [_I, _I, _P],
+     "flash_attention_occupancy": [_I, _P]},
 )
 ROUTES = ("cuda_cores", "tensor_cores")
 #: the kernel's tile: 64 queries by 64 keys (both routes)
 TILE = 64
 #: the widest head the kernel takes (recurrentgemma-2b's local blocks: 256)
 MAX_HEAD_DIM = 256
+#: head dims the tensor-core route runs on the pingpong schedule (128-row q
+#: tiles on two consumer warpgroups); 64 and below, and past 128, keep the
+#: 64-row kernel
+PINGPONG_HEAD_DIMS = range(72, 129)
 
 
 def route(dtype, views, ptrs) -> str:
@@ -113,7 +118,18 @@ def _launch(q, k, v, out, q_pos, k_pos, causal: bool, window: int):
         )
     LIBRARY.check(code, "flash_attention launch")
     count_launch(flash_attention)
+    if r == "tensor_cores" and d in PINGPONG_HEAD_DIMS:
+        count("flash.tc_pingpong_launches")
     return out
+
+
+def occupancy(head_dim: int) -> int:
+    """CTAs of the tensor-core kernel for ``head_dim`` that one SM holds at
+    once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; needs a card)."""
+    ctas = ctypes.c_int(0)
+    LIBRARY.check(LIBRARY.load().flash_attention_occupancy(head_dim, ctypes.byref(ctas)),
+                  "flash_attention occupancy")
+    return ctas.value
 
 
 @functools.lru_cache(maxsize=64)

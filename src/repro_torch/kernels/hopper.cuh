@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the port's tensor-core kernels
 // (gemm_dataflow.cu, flash_attention.cu): mbarriers, TMA tensor loads,
-// wgmma synchronisation, the shared-memory matrix descriptor for the
+// wgmma synchronisation, named barriers and register moves between
+// warpgroups, the shared-memory matrix descriptor for the
 // 128-byte swizzle, and the m64nNk16 bf16 products the two kernels issue.
 // Inline PTX for sm_90a; nothing here is a finished kernel.
 //
@@ -123,6 +124,28 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
          "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// Named barrier `id` (1..15; 0 is __syncthreads) of `count` threads, a
+// multiple of 32: sync waits for the count, arrive adds to it and goes on.
+__device__ __forceinline__ void named_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void named_bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
+// Moves registers between warpgroups of a CTA: a whole warpgroup lowers or
+// raises its per-thread limit (a multiple of 8 in [24, 256]); a raise
+// waits until another warpgroup's lowering has freed the registers.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
 }
 
 __device__ __forceinline__ void wgmma_fence() {

@@ -7,8 +7,11 @@ beside their library calls; not a part of any model path.
 
 For ``spmm`` and ``fused_agg_cmb`` at cora's layer 0 (f32) and at the
 layer-0 shapes of the reddit-bin (512, 256) serving bucket (f32), flash
-attention at smollm-135m prefill (bf16) and ``gemm`` at smollm's ``w_gate``
-(bf16) and cora's layer-0 combination (f32), each dataflow:
+attention at smollm-135m prefill (bf16) and at one Mellum2-12B-A2.5B
+prefill layer of each type (bf16, 16,384 positions, GQA 32 / 4, head dim
+128, the 1,024 window and none: the pingpong schedule), and ``gemm`` at
+smollm's ``w_gate`` (bf16) and cora's layer-0 combination (f32), each
+dataflow:
 
 - the kernel's device time from ``torch.profiler`` (CUPTI kernel records,
   mean of ``--iters`` calls, L2 flushed before each), and the library
@@ -19,6 +22,8 @@ attention at smollm-135m prefill (bf16) and ``gemm`` at smollm's ``w_gate``
 - resources: ptxas's registers and spills per instantiation, the CTA's
   threads and shared memory, the CTAs an SM holds by each limit, the grid
   and its waves (the GNN kernels report their launch through ``plan``);
+  for flash also the CTAs an SM holds as the runtime reports them
+  (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) at each head dim;
 - ablations: copies of the kernel source with one stage taken out, built
   and timed the same way (their outputs are wrong by design; only their
   time is read).  The gap to the full kernel is what that stage costs on
@@ -91,8 +96,6 @@ ABLATIONS = {
     ("flash_attention", "no_pv"): [(
         "        if constexpr (DP == 64) {\n"
         "          hopper::wgmma_rs_n64<1>(o, pa[kk], dv, 1);\n"
-        "        } else if constexpr (DP == 128) {\n"
-        "          hopper::wgmma_rs_n128<1>(o, pa[kk], dv, 1);\n"
         "        } else {  // columns 0-127, then 128-255 (panels 2 and 3)\n"
         "#pragma unroll\n"
         "          for (int half = 0; half < 2; ++half)\n"
@@ -330,7 +333,7 @@ def main(argv=None) -> int:
 
     def reading(case, fn, library, lib_obj, ablations, n_bytes, n_ops, dtype, launch):
         ms, names = device_ms(fn, flush, args.iters)
-        lib_ms, lib_names = device_ms(library, flush, args.iters)
+        lib_ms, lib_names = device_ms(library, flush, args.iters) if library else (None, [])
         abl = {}
         saved = lib_obj._lib
         try:
@@ -383,6 +386,29 @@ def main(argv=None) -> int:
             # consumer warpgroup and a producer warp, 3-stage K/V ring
             {"entry": "flash_tc_kernel<64>", "threads": 160,
              "smem": 1024 + 8192 + 2 * 3 * 8192 + 256, "ctas": b * hq * (s // 64)})
+
+    emit({"reading": "flash_occupancy", "ctas_per_sm_by_head_dim":
+          {d: fops.occupancy(d) for d in (64, 128, 256)}}, records)
+    # flash attention, one Mellum2-12B-A2.5B prefill layer of each type
+    b, hq, hkv, s, d = 1, 32, 4, 16384, 128
+    q = randn((b, s, hq, d), 10, torch.bfloat16)
+    k = randn((b, s, hkv, d), 11, torch.bfloat16)
+    v = randn((b, s, hkv, d), 12, torch.bfloat16)
+    pos = torch.arange(s, device=dev, dtype=torch.int32)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    for window in (1024, 0):  # SDPA beside the full layer only (a band mask is materialised)
+        reading(f"flash mellum2_prefill_window_{window}",
+                lambda window=window: fops.attend(q, k, v, pos, pos, window),
+                None if window else lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True),
+                fops.LIBRARY, (), 2 * b * s * d * (2 * hq + 2 * hkv),
+                fops.attend_flops(q.shape, k.shape, window), torch.bfloat16,
+                # as flash_attention.cu sizes the launch: persistent, one
+                # CTA an SM over 128-row q tiles; two consumer warpgroups
+                # and a producer warpgroup; q, two K/V stages, the output
+                {"entry": "flash_tc_kernel_pingpong", "threads": 384,
+                 "smem": 1024 + 32768 + 2 * 65536 + 32768 + 256,
+                 "ctas": min(b * hq * (s // 128), sms)})
 
     # gemm: smollm's w_gate (bf16, tensor cores) and cora layer 0 (f32)
     for case, (vv, f, g), dtype in (("w_gate_bf16", (4096, 576, 1536), torch.bfloat16),

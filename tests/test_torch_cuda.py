@@ -341,9 +341,28 @@ def assert_rows_close_to_f32(out, ref32):
     assert float(row.max()) <= FLASH_ROW_REL_L2, float(row.max())
 
 
+# Head dims 72..128 run the pingpong schedule (128-row q tiles, two consumer
+# warpgroups of 64 rows): Sq 1, 63, 64, 65, 127, 129 and 300 leave the
+# second warpgroup no rows, some or all of them; GQA 32 / 4, MHA, B 2.
 FLASH_BF16_EDGES = [(1, 14, 2, 130, 130, 128), (2, 7, 1, 200, 200, 8),
                     (1, 4, 2, 70, 300, 64), (1, 6, 3, 300, 45, 40),
-                    (1, 10, 1, 200, 200, 256), (1, 4, 2, 130, 70, 136)]
+                    (1, 10, 1, 200, 200, 256), (1, 4, 2, 130, 70, 136),
+                    (1, 32, 4, 1, 300, 128), (2, 8, 8, 63, 63, 120),
+                    (1, 32, 4, 64, 129, 128), (2, 4, 4, 65, 65, 120),
+                    (1, 8, 2, 127, 300, 128), (1, 32, 4, 129, 64, 120),
+                    (2, 6, 2, 300, 127, 128), (1, 32, 4, 300, 300, 120)]
+
+
+def pingpong_launches():
+    return repro_torch.trace.counters().get("flash.tc_pingpong_launches", 0)
+
+
+def assert_one_launch(launches, pingpong, d):
+    """One kernel launch since the counts ``launches`` and ``pingpong``; the
+    pingpong schedule's counter moved with it exactly for head dims 72..128
+    (64 and below, and past 128, keep the 64-row kernel)."""
+    assert flash_attention.launches == launches + 1
+    assert pingpong_launches() == pingpong + (72 <= d <= 128)
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -352,7 +371,10 @@ def test_flash_bf16_edges_match_plain(dev, b, hq, hkv, sq, sk, d, causal):
     q = randn((b, hq, sq, d), 1, dev, torch.bfloat16)
     k, v = randn((b, hkv, sk, d), 2, dev, torch.bfloat16), randn((b, hkv, sk, d), 3, dev,
                                                                    torch.bfloat16)
+    launches, pingpong = flash_attention.launches, pingpong_launches()
     out = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert_one_launch(launches, pingpong, d)
     plain = attend_chunked(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                            torch.arange(sq, device=dev), torch.arange(sk, device=dev),
                            causal=causal)
@@ -363,17 +385,34 @@ def test_flash_bf16_edges_match_plain(dev, b, hq, hkv, sq, sk, d, causal):
     assert_rows_close_to_f32(out, plain32.transpose(1, 2))
 
 
-@pytest.mark.parametrize("window", [0, 7, 100])
-def test_attend_bf16_offset_positions_and_window(dev, window):
+# (B, Sq, Sk, Hq, Hkv, D, window, layout): the model's (B, S, H, D) tensors,
+# or views of the op's (B, H, S, D) storage; the last two are the prefill
+# cell's own shapes (Mellum2's windowed and full layers)
+ATTEND_BF16_CASES = [(2, 70, 200, 6, 2, 64, 0, "bshd"), (2, 70, 200, 6, 2, 64, 7, "bshd"),
+                     (2, 70, 200, 6, 2, 64, 100, "bshd")] + [
+    (2, 300, 1500, 32, 4, 128, w, layout) for w in (0, 100, 1024)
+    for layout in ("bshd", "bhsd")] + [
+    (1, 129, 1100, 8, 8, 120, 100, "bhsd"), (1, 16384, 16384, 32, 4, 128, 1024, "bshd"),
+    (1, 16384, 16384, 32, 4, 128, 0, "bshd")]
+
+
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,d,window,layout", ATTEND_BF16_CASES)
+def test_attend_bf16_offset_positions_and_window(dev, b, sq, sk, hq, hkv, d, window, layout):
     """The model route in bf16: a query chunk at the end of a longer key
-    range (Sq != Sk, positions offset), GQA 3, with and without a window."""
-    b, sq, sk, hq, hkv, d = 2, 70, 200, 6, 2, 64
-    q = randn((b, sq, hq, d), 4, dev, torch.bfloat16)
-    k = randn((b, sk, hkv, d), 5, dev, torch.bfloat16)
-    v = randn((b, sk, hkv, d), 6, dev, torch.bfloat16)
+    range (Sq != Sk, positions offset), GQA and MHA, with and without a
+    window, read in either layout."""
+    def make(s, h, seed):
+        if layout == "bshd":
+            return randn((b, s, h, d), seed, dev, torch.bfloat16)
+        return randn((b, h, s, d), seed, dev, torch.bfloat16).transpose(1, 2)
+
+    q, k, v = make(sq, hq, 4), make(sk, hkv, 5), make(sk, hkv, 6)
     q_pos = torch.arange(sk - sq, sk, device=dev, dtype=torch.int32) + 5
     k_pos = torch.arange(sk, device=dev, dtype=torch.int32) + 5
+    launches, pingpong = flash_attention.launches, pingpong_launches()
     out = attend(q, k, v, q_pos, k_pos, window, 64)
+    torch.cuda.synchronize()
+    assert_one_launch(launches, pingpong, d)
     torch.testing.assert_close(out, attend_chunked(q, k, v, q_pos, k_pos, window, 64),
                                **BF16_TOL)
     assert_rows_close_to_f32(out, attend_chunked(q.float(), k.float(), v.float(), q_pos,
@@ -389,10 +428,10 @@ def test_flash_d256_mqa_window_matches_plain(dev):
     k, v = randn((b, s, hkv, d), 8, dev, torch.bfloat16), randn((b, s, hkv, d), 9, dev,
                                                                  torch.bfloat16)
     pos = torch.arange(s, device=dev, dtype=torch.int32)
-    before = flash_attention.launches
+    launches, pingpong = flash_attention.launches, pingpong_launches()
     out = attend(q, k, v, pos, pos, win)
     torch.cuda.synchronize()
-    assert flash_attention.launches == before + 1
+    assert_one_launch(launches, pingpong, d)
     torch.testing.assert_close(out, attend_chunked(q, k, v, pos, pos, win), **BF16_TOL)
     assert_rows_close_to_f32(out, attend_chunked(q.float(), k.float(), v.float(), pos,
                                                  pos, win))

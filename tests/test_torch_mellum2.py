@@ -93,6 +93,36 @@ def test_the_benchmarks_configuration_holds_the_published_keys():
     assert from_published(c, dtype=c["dtype"]) == CONFIG
 
 
+def test_the_flash_yardstick_counts_what_the_kernels_flop_formula_counts(monkeypatch):
+    """``flash_attention_roofline`` divides each layer's work, as its metric
+    file counts it at the prefill cell's shapes, by the kernel's time; the
+    kernel's own FLOP formula (``attend_flops``, the custom op's) must count
+    the same operations for both layer types, or the share goes stale."""
+    import importlib.util
+
+    from repro_torch.kernels.flash_attention.ops import attend_flops
+
+    bench = REPO / "perfbench"
+    monkeypatch.syspath_prepend(str(bench))  # the metric file imports yardstick
+    spec = importlib.util.spec_from_file_location(
+        "flash_attention_roofline", bench / "metrics" / "flash_attention_roofline.py")
+    metric = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(metric)
+    c = json.loads((bench / "configs" / f"{NAME}.json").read_text())
+    traffic = json.loads((bench / "traffic" / "prefill.json").read_text())
+    b, s = traffic["batch"], traffic["seq_len"]
+    hq, hkv, d = c["num_attention_heads"], c["num_key_value_heads"], c["head_dim"]
+    work = metric.work(c, b, s)
+    assert len(work) == len(c["layer_types"]) == 28
+    by_type = {}
+    for (_, n_ops), kind in zip(work, c["layer_types"]):
+        window = c["sliding_window"] if kind == "sliding_attention" else 0
+        assert n_ops == attend_flops((b, s, hq, d), (b, s, hkv, d), window)
+        by_type[kind] = n_ops
+    assert set(by_type) == {"sliding_attention", "full_attention"}
+    assert by_type["sliding_attention"] < by_type["full_attention"]
+
+
 @pytest.mark.parametrize("change, what", [
     ({"mlp_layer_types": ["dense"] + ["sparse"] * 27}, "dense FFN"),
     ({"norm_topk_prob": False}, "unnormalised"),
@@ -272,7 +302,8 @@ def test_flash_at_mellum2s_heads_on_the_card(card, window):
     1,024 window (key blocks behind it skipped), bf16 on the tensor cores:
     against the plain version in bf16 at the kernel suite's 2e-2, and each
     row against it in float32 within 1e-2 relative L2 (the kernel rounds P
-    to bf16)."""
+    to bf16).  Head dim 128 runs the pingpong schedule, which counts its
+    launch."""
     from repro_torch.kernels.flash_attention import attend, attend_chunked, flash_attention
 
     g = torch.Generator(device=card).manual_seed(11)
@@ -280,9 +311,11 @@ def test_flash_at_mellum2s_heads_on_the_card(card, window):
     k, v = (torch.randn(1, 4096, 4, 128, generator=g, device=card).bfloat16() for _ in "kv")
     pos = torch.arange(4096, device=card, dtype=torch.int32)
     before = flash_attention.launches
+    pingpong = trace.counters().get("flash.tc_pingpong_launches", 0)
     out = attend(q, k, v, pos, pos, window)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
+    assert trace.counters()["flash.tc_pingpong_launches"] == pingpong + 1
     torch.testing.assert_close(out, attend_chunked(q, k, v, pos, pos, window),
                                rtol=2e-2, atol=2e-2)
     ref32 = attend_chunked(q.float(), k.float(), v.float(), pos, pos, window)
